@@ -1,0 +1,125 @@
+"""Adjacency-block build: the CUDA kernel's wrapper and its plain version.
+
+`build_pair_adjacency` turns [K, E] per-family edge weights into
+[P, K, 128, 128] per-(src_block, dst_block) adjacency blocks, the batch
+constants that every layer's `mxu.pair_adj_matmul` multiplies against.  It
+replaces the Pallas TPU kernel `dgn_tpu/ops/pallas/adjacency.py:
+build_pair_adjacency`; the CUDA source (`csrc/adjacency.cu`) says how.
+
+The wrapper dispatches on the device of the tensor it is given: a CUDA
+tensor launches the hand-written kernel (or raises), a CPU tensor takes the
+plain version.  The weights are batch constants (eig-derived, no
+gradient), so the kernel has no backward.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+TILE = 128
+_OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def build_pair_adjacency_plain(weights: torch.Tensor, layout,
+                               out_dtype: Optional[torch.dtype] = None
+                               ) -> torch.Tensor:
+    """The plain PyTorch version: zeros, then one accumulating index_put_.
+
+    Accumulates in f32 (f64 for f64 weights) and casts once."""
+    k, e_pad = weights.shape
+    dt = out_dtype if out_dtype is not None else weights.dtype
+    acc_dt = torch.float64 if weights.dtype == torch.float64 else torch.float32
+    out = torch.zeros((layout.n_pairs, k, TILE, TILE), dtype=acc_dt,
+                      device=weights.device)
+    pair = layout.chunk_pair.long().repeat_interleave(TILE).expand(k, e_pad)
+    fam = torch.arange(k, device=weights.device).unsqueeze(1).expand(k, e_pad)
+    ls = layout.local_src.long().expand(k, e_pad)
+    ld = layout.local_dst.long().expand(k, e_pad)
+    out.index_put_((pair, fam, ls, ld), weights.to(acc_dt), accumulate=True)
+    return out.to(dt)
+
+
+def _check_index(name: str, t: torch.Tensor, n: int, device) -> None:
+    if t.device != device or t.dtype != torch.int32 or t.dim() != 1 \
+            or t.shape[0] != n or not t.is_contiguous():
+        raise ValueError(f"build_pair_adjacency: layout.{name} must be a "
+                         f"contiguous int32 [{n}] tensor on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+@functools.cache
+def _kernel():
+    """(launch, error string) C functions of csrc/adjacency.cu, built on
+    first use."""
+    from . import cuda_build
+    lib = cuda_build.load("adjacency")
+    fn = lib.dgn_build_pair_adjacency
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    errstr = lib.dgn_cuda_error_string
+    errstr.argtypes = [ctypes.c_int]
+    errstr.restype = ctypes.c_char_p
+    return fn, errstr
+
+
+def _launch(weights: torch.Tensor, layout, out_dtype) -> torch.Tensor:
+    if weights.dtype != torch.float32 or weights.dim() != 2 \
+            or not weights.is_contiguous():
+        raise ValueError("build_pair_adjacency: weights must be a contiguous "
+                         f"float32 [K, E] tensor, got {weights.dtype} "
+                         f"{tuple(weights.shape)}")
+    k, e_pad = weights.shape
+    if k == 0 or e_pad == 0 or e_pad % TILE:
+        raise ValueError(f"build_pair_adjacency: need K > 0 and E a positive "
+                         f"multiple of {TILE}, got {tuple(weights.shape)}")
+    if out_dtype not in _OUT_DTYPES:
+        raise ValueError(f"build_pair_adjacency: out_dtype {out_dtype} is not "
+                         "float32 or bfloat16")
+    n_chunks = e_pad // TILE
+    dev = weights.device
+    _check_index("local_src", layout.local_src, e_pad, dev)
+    _check_index("local_dst", layout.local_dst, e_pad, dev)
+    _check_index("pair_chunk_order", layout.pair_chunk_order, n_chunks, dev)
+    _check_index("pair_sorted_ids", layout.pair_sorted_ids, n_chunks, dev)
+    n_pairs = layout.n_pairs
+    if n_pairs <= 0:
+        raise ValueError("build_pair_adjacency: layout has no pairs")
+
+    fn, errstr = _kernel()
+    out = torch.empty((n_pairs, k, TILE, TILE), dtype=out_dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(weights.data_ptr(), layout.local_src.data_ptr(),
+                 layout.local_dst.data_ptr(),
+                 layout.pair_chunk_order.data_ptr(),
+                 layout.pair_sorted_ids.data_ptr(), out.data_ptr(),
+                 k, e_pad, n_chunks, n_pairs,
+                 int(out_dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError("build_pair_adjacency kernel launch failed: "
+                           f"{errstr(err).decode()} (cudaError {err})")
+    build_pair_adjacency.launches += 1
+    return out
+
+
+def build_pair_adjacency(weights: torch.Tensor, layout,
+                         out_dtype: Optional[torch.dtype] = None
+                         ) -> torch.Tensor:
+    """[K, E] edge weights -> [P, K, TILE, TILE] adjacency blocks.
+
+    CUDA tensors launch the kernel (f32 weights; f32 or bf16 output) or
+    raise; CPU tensors take build_pair_adjacency_plain.  Each kernel launch
+    adds one to `build_pair_adjacency.launches`."""
+    if weights.device.type == "cuda":
+        dt = out_dtype if out_dtype is not None else weights.dtype
+        return _launch(weights, layout, dt)
+    if weights.device.type != "cpu":
+        raise ValueError(f"build_pair_adjacency: unsupported device "
+                         f"{weights.device}")
+    return build_pair_adjacency_plain(weights, layout, out_dtype)
+
+
+build_pair_adjacency.launches = 0
