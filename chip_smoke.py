@@ -7,15 +7,19 @@ Run from the root of a checkout, on a machine with a CUDA GPU (written for
 the H100) and the CUDA toolkit.  Phases, each of which fails the script:
 
 1. card: name and power limit from nvidia-smi; no CUDA device -> exit 1;
-2. build: every CUDA kernel of the package, from the checkout's sources;
-3. kernels: each kernel at the main path's shapes (ZINC, batch 128), plus a
-   multi-block case and bf16 output, held against its plain PyTorch version
-   on the card and against an f64 oracle, and timed beside the plain
-   version, one equivalent PyTorch call and the card's bound;
-4. training: the port's entry point (dgn_tpu_torch.run) trains the
-   canonical ZINC config at full width on the card, with every kernel
-   launch counter set to 0 just before and read just after; then the step
-   time, and one step from identical weights on the CPU and on the card.
+2. build: every CUDA kernel of the package, from the checkout's sources, one
+   nvcc per source, all started together;
+3. kernels: each kernel at its main path's shapes, held against its plain
+   PyTorch version on the card and against an f64 oracle, and timed beside
+   the plain version, one equivalent PyTorch call and the card's bound:
+   build_pair_adjacency at the ZINC batch (plus a multi-block case and bf16
+   output), the segment_extremes forward/backward pair at the HIV batch
+   (plus tie, star and multi-block cases);
+4. training, once per path: the port's entry point (dgn_tpu_torch.run)
+   trains the canonical ZINC config, then the HIV config, at full width on
+   the card, with every kernel launch counter set to 0 just before and read
+   just after each run; then each path's step time and device activity, and
+   one step from identical weights on the CPU and on the card.
 
 Prints a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`.  Needs no network; starts no process other
@@ -24,6 +28,7 @@ than nvidia-smi and nvcc, and waits for each.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import statistics
@@ -34,6 +39,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs" / "molecules_graph_regression_DGN_ZINC.json"
+HIV_CONFIG = REPO / "configs" / "molecules_graph_classification_DGN_HIV.json"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 F32_TOL, BF16_TOL = 1e-6, 1e-2
@@ -108,18 +114,30 @@ def multiblock_graphs(np, GraphData, n_graphs: int = 4, seed: int = 11):
     return out
 
 
-def kernel_phase(torch, np):
-    from dgn_tpu_torch.data.synthetic import synthetic_zinc
-    from dgn_tpu_torch.graph import (GraphData, mxu_bucket_sizes,
-                                     mxu_pair_pad, pack_graphs)
-    from dgn_tpu_torch.ops import adjacency
+def packed(graphs):
+    """One block-layout batch at the worst-case pads of its graphs, in the
+    loader's order (descending node count)."""
+    from dgn_tpu_torch.graph import mxu_bucket_sizes, mxu_pair_pad, pack_graphs
+    graphs = sorted(graphs, key=lambda g: -g.num_nodes)
+    n_pad, e_pad, g_pad = mxu_bucket_sizes(graphs, len(graphs))
+    return pack_graphs(graphs, n_pad=n_pad, e_pad=e_pad, g_pad=g_pad,
+                       mxu_layout=True, n_pairs_pad=mxu_pair_pad(
+                           graphs, len(graphs), n_pad, e_pad))
 
-    def packed(graphs):
-        graphs = sorted(graphs, key=lambda g: -g.num_nodes)
-        n_pad, e_pad, g_pad = mxu_bucket_sizes(graphs, len(graphs))
-        return pack_graphs(graphs, n_pad=n_pad, e_pad=e_pad, g_pad=g_pad,
-                           mxu_layout=True, n_pairs_pad=mxu_pair_pad(
-                               graphs, len(graphs), n_pad, e_pad))
+
+def bound(bytes_moved: int, ops: int):
+    """(bound ms, "bytes" or "operations"): the larger of bytes over the HBM
+    rate and operations over the f32 rate."""
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOP_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def adjacency_phase(torch, np):
+    from dgn_tpu_torch.data.synthetic import synthetic_zinc
+    from dgn_tpu_torch.graph import GraphData
+    from dgn_tpu_torch.ops import adjacency
 
     # the main path's batch: 128 ZINC-like graphs, the three families of
     # `mean dir1-dx dir1-av` (one, delta1, abs1) as build_edge_context
@@ -187,69 +205,221 @@ def kernel_phase(torch, np):
     bytes_moved = (w_main.numel() * 4 + 2 * e_pad * 4 + 2 * n_chunks * 4
                    + p * k * 128 * 128 * 4)
     adds = int((w_main != 0).sum().item())
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = adds / FP32_FLOP_PER_S * 1e3
+    bound_ms, bound_by = bound(bytes_moved, adds)
     print(f"kernel build_pair_adjacency timing: K={k} E={e_pad} C={n_chunks} "
           f"P={p} ({int(layout.pair_covered.sum())} covered), "
           f"{bytes_moved} bytes, {adds} adds; device ms kernel {ms:.5f}, "
           f"plain {plain_ms:.5f}, library {library_ms:.5f}, bound "
-          f"{max(bytes_ms, ops_ms):.5f}; per call incl. host: kernel "
+          f"{bound_ms:.5f}; per call incl. host: kernel "
           f"{call_ms:.5f}, plain {plain_call_ms:.5f}, library "
           f"{library_call_ms:.5f}")
     return {"name": "build_pair_adjacency", "route": "cuda",
             "source": "dgn_tpu_torch/ops/csrc/adjacency.cu",
             "replaces": "dgn_tpu/ops/pallas/adjacency.py:83",
             "launches": None, "max_abs_err": err_main, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}, zinc
 
 
-def training_phase(torch, np, kernels, zinc_batch):
-    from dgn_tpu_torch import run
-    from dgn_tpu_torch.config import load_config
-    from dgn_tpu_torch.models import zinc_model
-    from dgn_tpu_torch.ops import adjacency
-    from dgn_tpu_torch.train.trainer import Trainer
+def star_graph(np, GraphData, n: int = 120, hub: int = 10):
+    """A star whose hub gets n-1 in-edges.  The hub is node 10, so the 10
+    leaves before it come first in the dst-sorted edges and the hub's run
+    of 119 edges crosses the 128-edge chunk boundary."""
+    leaves = np.delete(np.arange(n), hub)
+    hubs = np.full(n - 1, hub)
+    return GraphData(num_nodes=n,
+                     src=np.concatenate([leaves, hubs]).astype(np.int32),
+                     dst=np.concatenate([hubs, leaves]).astype(np.int32),
+                     node_feat=np.zeros(n, np.int32),
+                     eig=np.zeros((n, 2), np.float32),
+                     label=np.zeros(1, np.float32))
 
-    # ---- the main path, through the user's entry point
-    epochs, size = 2, 1024
-    argv = ["--config", str(CONFIG), "--epochs", str(epochs),
+
+def extremes_phase(torch, np):
+    """The segment_extremes kernel pair against its plain version (forward
+    and autograd backward) and an f64 oracle, then timed at the HIV main
+    path's shape: a batch of 128 synthetic ogbg-molhiv graphs, F = 70."""
+    from dgn_tpu_torch.data.synthetic import synthetic_ogb_mol
+    from dgn_tpu_torch.graph import GraphData
+    from dgn_tpu_torch.ops import extremes
+
+    dev = torch.device(DEVICE)
+    f_main = 70
+    hiv = packed(synthetic_ogb_mol(512, seed=41, n_tasks=1, k_eig=4)[:128])
+    rng = np.random.default_rng(7)
+    # what a layer hands the kernel: ge = h[src] of post-ReLU node features,
+    # so exact zeros tie (ReLU) and one src's value repeats across its edges
+    h = np.maximum(rng.normal(size=(hiv.num_nodes_padded, f_main)), 0.0)
+    ge_main = h.astype(np.float32)[hiv.src.numpy()]
+
+    def quantized(gb, f):
+        v = rng.normal(size=(gb.num_edges_padded, f))
+        return (np.round(v * 2.0) / 2.0).astype(np.float32)
+
+    star = packed([star_graph(np, GraphData)])
+    sbm = packed(multiblock_graphs(np, GraphData))
+    cases = [("hiv_main_f70", hiv, ge_main),
+             ("hiv_quantized_ties", hiv, quantized(hiv, f_main)),
+             ("star_in_degree_119", star, quantized(star, 16)),
+             ("sbm_multiblock", sbm, quantized(sbm, 16))]
+    err_fwd = err_bwd = None
+    for name, gb, vals in cases:
+        layout, mask = gb.mxu.to(dev), gb.edge_mask.to(dev)
+        n = gb.num_nodes_padded
+        w1 = torch.from_numpy(rng.normal(size=(n, vals.shape[1])).astype(
+            np.float32)).to(dev)
+
+        def run(fn, dev_=dev, layout_=layout, mask_=mask, w=w1):
+            x = torch.tensor(vals, device=dev_, requires_grad=True)
+            mx, mn = fn(x, layout_, mask_, n)
+            ((w * mx).sum() + (torch.sin(w) * mn).sum()).backward()
+            return mx.detach(), mn.detach(), x.grad
+
+        mx, mn, grad = run(extremes.segment_extremes)
+        torch.cuda.synchronize()
+        pmx, pmn, pgrad = run(extremes.segment_extremes_plain)
+        omx, omn = extremes.segment_extremes_plain(
+            torch.from_numpy(vals).double(), gb.mxu, gb.edge_mask, n)
+        e_plain = max((mx - pmx).abs().max().item(),
+                      (mn - pmn).abs().max().item())
+        e_oracle = max((mx.cpu().double() - omx).abs().max().item(),
+                       (mn.cpu().double() - omn).abs().max().item())
+        e_grad = (grad - pgrad).abs().max().item()
+        pad_grad = grad[~mask].abs().max().item() if (~mask).any() else 0.0
+        print(f"kernel segment_extremes {name}: ge {tuple(vals.shape)}, "
+              f"forward max|kernel-plain| {e_plain:.3g}, max|kernel-f64 "
+              f"oracle| {e_oracle:.3g} (tol 0); backward max|kernel-plain| "
+              f"{e_grad:.3g} (tol {F32_TOL:g}), max|pad-edge grad| "
+              f"{pad_grad:.3g} (must be 0)")
+        if e_plain != 0 or e_oracle != 0:
+            fail(f"segment_extremes forward {name} is not exact")
+        if not e_grad <= F32_TOL or pad_grad != 0:
+            fail(f"segment_extremes backward {name} disagrees")
+        if name == "hiv_main_f70":
+            err_fwd, err_bwd = e_plain, e_grad
+
+    # timing at the main path's shape
+    layout, mask = hiv.mxu.to(dev), hiv.edge_mask.to(dev)
+    n, f = hiv.num_nodes_padded, f_main
+    x = torch.from_numpy(ge_main).to(dev)
+    e_pad = x.shape[0]
+    n_chunks = e_pad // 128
+    n_real = int(mask.sum().item())
+    dmx = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(dev)
+    dmn = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(dev)
+    mx, mn = extremes.segment_extremes_fwd(x, layout, mask, n)
+    fwd_ms, fwd_call = timed(
+        torch, lambda i: extremes.segment_extremes_fwd(x, layout, mask, n))
+    bwd_ms, bwd_call = timed(torch, lambda i: extremes.segment_extremes_bwd(
+        x, mx, mn, dmx, dmn, layout, mask))
+    pfwd_ms, pfwd_call = timed(
+        torch, lambda i: extremes.segment_extremes_plain(x, layout, mask, n))
+    xp = x.clone().requires_grad_()
+    pout = extremes.segment_extremes_plain(xp, layout, mask, n)
+    pbwd_ms, pbwd_call = timed(torch, lambda i: torch.autograd.grad(
+        pout, xp, (dmx, dmn), retain_graph=True))
+    # the library call: scatter_reduce amax and amin into a zeroed buffer
+    # whose extra row n takes the pad edges (include_self=False leaves rows
+    # without an edge at 0).  Checked once against the kernel.
+    dst = (layout.edge_chunk_dst.long().repeat_interleave(128) * 128
+           + layout.local_dst.long())
+    idx = torch.where(mask, dst, n)[:, None].expand(-1, f).contiguous()
+    buf = torch.zeros((n + 1, f), device=dev)
+
+    def library(v):
+        return (buf.scatter_reduce(0, idx, v, "amax", include_self=False),
+                buf.scatter_reduce(0, idx, v, "amin", include_self=False))
+
+    lmx, lmn = library(x)
+    if not (torch.equal(lmx[:n], mx) and torch.equal(lmn[:n], mn)):
+        fail("the library call does not compute segment_extremes")
+    lib_fwd_ms, lib_fwd_call = timed(torch, lambda i: library(x))
+    xl = x.clone().requires_grad_()
+    lout = library(xl)
+    zero_row = torch.zeros((1, f), device=dev)
+    lct = (torch.cat([dmx, zero_row]), torch.cat([dmn, zero_row]))
+    lib_bwd_ms, lib_bwd_call = timed(torch, lambda i: torch.autograd.grad(
+        lout, xl, lct, retain_graph=True))
+    # bytes each must move: the real edges' values, the layout's index and
+    # mask arrays, and the outputs (forward: max and min [N, F]; backward:
+    # reads max, min and both cotangents, writes d_ge [E, F] whole)
+    index_bytes = e_pad * 4 + e_pad + n_chunks * 4
+    fwd_bytes = n_real * f * 4 + index_bytes + 2 * n * f * 4
+    bwd_bytes = n_real * f * 4 + index_bytes + 4 * n * f * 4 + e_pad * f * 4
+    fwd_bound, fwd_by = bound(fwd_bytes, 2 * n_real * f)
+    bwd_bound, bwd_by = bound(bwd_bytes, 6 * n_real * f + 2 * n * f)
+    print(f"kernel segment_extremes timing: E={e_pad} ({n_real} real) "
+          f"C={n_chunks} N={n} F={f}; forward {fwd_bytes} bytes: device ms "
+          f"kernel {fwd_ms:.5f}, plain {pfwd_ms:.5f}, library "
+          f"{lib_fwd_ms:.5f}, bound {fwd_bound:.5f}; per call incl. host: "
+          f"kernel {fwd_call:.5f}, plain {pfwd_call:.5f}, library "
+          f"{lib_fwd_call:.5f}")
+    print(f"kernel segment_extremes timing: backward {bwd_bytes} bytes: "
+          f"device ms kernel {bwd_ms:.5f}, plain (autograd) {pbwd_ms:.5f}, "
+          f"library (autograd) {lib_bwd_ms:.5f}, bound {bwd_bound:.5f}; per "
+          f"call incl. host: kernel {bwd_call:.5f}, plain {pbwd_call:.5f}, "
+          f"library {lib_bwd_call:.5f}")
+    common = {"route": "cuda", "source": "dgn_tpu_torch/ops/csrc/extremes.cu",
+              "launches": None}
+    return [dict(common, name="segment_extremes_fwd",
+                 replaces="dgn_tpu/ops/extremes.py:200", max_abs_err=err_fwd,
+                 ms=fwd_ms, plain_ms=pfwd_ms, bound_ms=fwd_bound,
+                 bound_by=fwd_by, library_ms=lib_fwd_ms),
+            dict(common, name="segment_extremes_bwd",
+                 replaces="dgn_tpu/ops/extremes.py:173", max_abs_err=err_bwd,
+                 ms=bwd_ms, plain_ms=pbwd_ms, bound_ms=bwd_bound,
+                 bound_by=bwd_by, library_ms=lib_bwd_ms)], hiv
+
+
+def launch_counters():
+    from dgn_tpu_torch.ops import adjacency, extremes
+    return {"build_pair_adjacency": adjacency.build_pair_adjacency,
+            "segment_extremes_fwd": extremes.segment_extremes_fwd,
+            "segment_extremes_bwd": extremes.segment_extremes_bwd}
+
+
+def drive_path(torch, config: Path, n_layers_extremes: int,
+               epochs: int = 2, size: int = 1024, bs: int = 128):
+    """Train `config` through the user's entry point with every launch
+    counter at 0 just before; returns (report, launches).  Fails unless the
+    launches are what the path must make: one adjacency build per forward
+    pass (every train step, every pass of the shuffled train loader in the
+    final eval, and each cached val/test batch once, as the trainer keeps
+    their edge contexts), the extremes forward once per max/min layer per
+    forward pass, and their backward once per such layer per train step."""
+    from dgn_tpu_torch import run
+    argv = ["--config", str(config), "--epochs", str(epochs),
             "--synthetic_size", str(size), "--device", DEVICE]
-    counters = [adjacency.build_pair_adjacency]
-    for c in counters:
+    counters = launch_counters()
+    for c in counters.values():
         c.launches = 0
     t0 = time.time()
     report = run.run(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"build_pair_adjacency": adjacency.build_pair_adjacency.launches}
-    for kern in kernels:
-        kern["launches"] = launches[kern["name"]]
-    # one adjacency build per forward pass: every train step, every pass of
-    # the shuffled train loader in the final eval, and each cached val/test
-    # batch once (the trainer keeps their edge contexts)
-    bs = 128
+    launches = {name: c.launches for name, c in counters.items()}
     train_b = math.ceil(size / bs)
-    evalb = 2 * math.ceil(max(size // 10, 16) / bs)
-    expected = epochs * train_b + train_b + evalb
-    print(f"main path: dgn_tpu_torch.run {' '.join(argv)} -> {wall:.1f}s, "
-          f"final test mae {report['final']['test']['mae']:.4f}, "
-          f"launches {launches} (expected build_pair_adjacency {expected})")
-    maes = [report["final"][s]["mae"] for s in ("train", "val", "test")]
-    if not all(math.isfinite(m) for m in maes):
-        fail(f"non-finite MAE in the final report: {maes}")
-    if launches["build_pair_adjacency"] != expected:
-        fail("build_pair_adjacency launches do not match one per forward")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+    eval_b = math.ceil(max(size // 10, 16) / bs)     # val and test each
+    steps = epochs * train_b
+    forwards = steps + epochs * 2 * eval_b + train_b + 2 * eval_b
+    expected = {"build_pair_adjacency": steps + train_b + 2 * eval_b,
+                "segment_extremes_fwd": n_layers_extremes * forwards,
+                "segment_extremes_bwd": n_layers_extremes * steps}
+    print(f"path {config.name}: dgn_tpu_torch.run {' '.join(argv)} -> "
+          f"{wall:.1f}s, final test {report['final']['test']}, launches "
+          f"{launches} (expected {expected})")
+    if launches != expected:
+        fail(f"{config.name}: kernel launches {launches} are not the "
+             f"expected {expected}")
+    return report, launches
 
-    # ---- step time at full width
-    cfg = load_config(str(CONFIG), {"synthetic_size": size})
-    _, model, loss_fn, trainer, loaders = run.prepare(cfg, DEVICE)
-    batches = [gb for _ in range(3) for gb in loaders["train"]]
-    before = adjacency.build_pair_adjacency.launches
+
+def step_profile(torch, trainer, batches, label: str, per_step: dict):
+    """Step time over steady steps, then device activity in a profiled
+    window; checks the launches each step makes."""
+    from torch.profiler import ProfilerActivity, profile
+    counters = launch_counters()
+    before = {k: c.launches for k, c in counters.items()}
     times = []
     for gb in batches:
         torch.cuda.synchronize()
@@ -258,18 +428,15 @@ def training_phase(torch, np, kernels, zinc_batch):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
         if not math.isfinite(float(loss)):
-            fail("non-finite training loss")
-    if adjacency.build_pair_adjacency.launches - before != len(batches):
-        fail("train steps did not launch build_pair_adjacency once each")
+            fail(f"{label}: non-finite training loss")
+    for name, n in per_step.items():
+        if counters[name].launches - before[name] != n * len(batches):
+            fail(f"{label}: train steps did not launch {name} {n} times each")
     steady = times[3:]
-    print(f"train step (hidden 45, L=4, batch 128, synthetic ZINC): median "
-          f"{statistics.median(steady):.3f} ms over {len(steady)} steps "
-          f"(min {min(steady):.3f}, max {max(steady):.3f}; first "
-          f"{times[0]:.1f} ms), n_pad={loaders['train'].n_pad} "
-          f"e_pad={loaders['train'].e_pad} pairs={loaders['train'].pair_pad}")
-
-    # ---- where a step's time goes: device activity in a profiled window
-    from torch.profiler import ProfilerActivity, profile
+    med = statistics.median(steady)
+    print(f"train step ({label}): median {med:.3f} ms over {len(steady)} "
+          f"steps (min {min(steady):.3f}, max {max(steady):.3f}; first "
+          f"{times[0]:.1f} ms)")
     n_prof = 5
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -281,34 +448,89 @@ def training_phase(torch, np, kernels, zinc_batch):
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3 / n_prof
     busy = sum(by_name.values())
-    print(f"train step device activity: {busy:.3f} ms/step in "
-          f"{len(events) / n_prof:.0f} device ops/step, "
-          f"{busy / statistics.median(steady):.1%} of the median step "
-          f"(the device idles the rest); top by device time:")
-    for name, t_ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+    print(f"train step device activity ({label}): {busy:.3f} ms/step in "
+          f"{len(events) / n_prof:.0f} device ops/step, {busy / med:.1%} of "
+          f"the median step (the device idles the rest); top by device time:")
+    for name, t_ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {t_ms:.4f} ms/step  {name[:100]}")
 
-    # ---- one step from identical weights and batch: CPU vs card
-    gen = torch.Generator().manual_seed(41)
-    model_cpu, loss_cpu = zinc_model(model.cfg, gen)
+
+def cpu_vs_card(torch, factory, cfg, params, batch, task: str):
+    """One train step from identical weights and batch on the CPU (plain
+    versions) and on the card (kernels)."""
+    from dgn_tpu_torch.train.trainer import Trainer
+    model_cpu, loss_cpu = factory(cfg, torch.Generator().manual_seed(41))
     model_gpu = copy.deepcopy(model_cpu)
-    t_cpu = Trainer(model_cpu, loss_cpu, cfg.params, device="cpu")
-    t_gpu = Trainer(model_gpu, loss_cpu, cfg.params, device=DEVICE)
-    l_cpu, s_cpu = t_cpu.train_step(zinc_batch)
-    l_gpu, s_gpu = t_gpu.train_step(zinc_batch)
-    gm = zinc_batch.graph_mask
+    t_cpu = Trainer(model_cpu, loss_cpu, params, task=task, device="cpu")
+    t_gpu = Trainer(model_gpu, loss_cpu, params, task=task, device=DEVICE)
+    l_cpu, s_cpu = t_cpu.train_step(batch)
+    l_gpu, s_gpu = t_gpu.train_step(batch)
+    gm = batch.graph_mask
     s_cpu, s_gpu = s_cpu[gm], s_gpu.cpu()[gm]
     d_scores = (s_cpu - s_gpu).abs().max().item()
     d_loss = abs(float(l_cpu) - float(l_gpu))
-    d_param = max((a.detach() - b.detach().cpu()).abs().max().item()
-                  for a, b in zip(model_cpu.parameters(),
-                                  model_gpu.parameters()))
-    print(f"cpu vs cuda, one step: |loss diff| {d_loss:.3g} "
+    d_param = {name: (a.detach() - b.detach().cpu()).abs().max().item()
+               for (name, a), b in zip(model_cpu.named_parameters(),
+                                       model_gpu.parameters())}
+    worst = max(d_param, key=d_param.get)
+    # a posttrans bias that feeds straight into batch norm (no graph norm)
+    # has a gradient that is zero up to rounding; Adam's first step turns
+    # that noise into a step of up to lr either way, on each side
+    rest = max(v for k, v in d_param.items()
+               if not k.endswith("posttrans.bias"))
+    print(f"cpu vs cuda, one {task} step: |loss diff| {d_loss:.3g} "
           f"(loss {float(l_cpu):.6f}), max |score diff| {d_scores:.3g}, "
-          f"max |param diff after Adam| {d_param:.3g}")
+          f"max |param diff after Adam| {d_param[worst]:.3g} ({worst}; "
+          f"{rest:.3g} without the posttrans biases)")
     if not (torch.allclose(s_gpu, s_cpu, rtol=STEP_RTOL, atol=STEP_ATOL)
             and math.isclose(float(l_gpu), float(l_cpu), rel_tol=STEP_RTOL)):
-        fail("the card's step disagrees with the CPU step")
+        fail(f"the card's {task} step disagrees with the CPU step")
+
+
+def training_phase(torch, zinc_batch, hiv_batch):
+    """Both paths through the entry point, each path's step, and each
+    path's CPU-vs-card step; returns {path: launches}."""
+    from dgn_tpu_torch import run
+    from dgn_tpu_torch.config import load_config
+    from dgn_tpu_torch.models import hiv_model, zinc_model
+
+    size = 1024
+    out = {}
+    # ---- ZINC: complex layers, no max/min
+    report, out["zinc"] = drive_path(torch, CONFIG, n_layers_extremes=0)
+    maes = [report["final"][s]["mae"] for s in ("train", "val", "test")]
+    if not all(math.isfinite(m) for m in maes):
+        fail(f"non-finite MAE in the ZINC report: {maes}")
+    cfg = load_config(str(CONFIG), {"synthetic_size": size})
+    _, model, _, trainer, loaders = run.prepare(cfg, DEVICE)
+    step_profile(torch, trainer,
+                 [gb for _ in range(3) for gb in loaders["train"]],
+                 f"ZINC, hidden 45, L=4, batch 128, n_pad="
+                 f"{loaders['train'].n_pad} e_pad={loaders['train'].e_pad} "
+                 f"pairs={loaders['train'].pair_pad}",
+                 {"build_pair_adjacency": 1})
+    cpu_vs_card(torch, zinc_model, model.cfg, cfg.params, zinc_batch, "zinc")
+
+    # ---- HIV: simple layers with max/min, dropout 0.3
+    report, out["hiv"] = drive_path(torch, HIV_CONFIG,
+                                    n_layers_extremes=4)
+    final = [report["final"][s][k] for s in ("train", "val", "test")
+             for k in ("rocauc", "loss")]
+    if not all(math.isfinite(m) for m in final):
+        fail(f"non-finite ROC-AUC or loss in the HIV report: {final}")
+    cfg = load_config(str(HIV_CONFIG), {"synthetic_size": size})
+    _, model, _, trainer, loaders = run.prepare(cfg, DEVICE)
+    step_profile(torch, trainer,
+                 [gb for _ in range(3) for gb in loaders["train"]],
+                 f"HIV, hidden 70, L=4, batch 128, dropout 0.3, n_pad="
+                 f"{loaders['train'].n_pad} e_pad={loaders['train'].e_pad} "
+                 f"pairs={loaders['train'].pair_pad}",
+                 {"build_pair_adjacency": 1, "segment_extremes_fwd": 4,
+                  "segment_extremes_bwd": 4})
+    # dropout 0: the CPU and CUDA generators draw different masks
+    cpu_vs_card(torch, hiv_model, dataclasses.replace(model.cfg, dropout=0.0),
+                cfg.params, hiv_batch, "hiv")
+    return out
 
 
 def main() -> None:
@@ -327,16 +549,25 @@ def main() -> None:
 
     from dgn_tpu_torch.ops import cuda_build
     t = time.time()
-    logs = cuda_build.build(["adjacency"])
+    logs = cuda_build.build(["adjacency", "extremes"])
     print(f"build: {time.time() - t:.1f}s")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    kern, zinc_batch = kernel_phase(torch, np)
-    kernels = [kern]
-    training_phase(torch, np, kernels, zinc_batch)
+    adj, zinc_batch = adjacency_phase(torch, np)
+    ext, hiv_batch = extremes_phase(torch, np)
+    kernels = [adj] + ext
+    launches = training_phase(torch, zinc_batch, hiv_batch)
+    # `launches` is each kernel's count on this slice's path (HIV); the
+    # counts of every path stand beside it
+    for kern in kernels:
+        kern["launches"] = launches["hiv"][kern["name"]]
+        kern["launches_by_path"] = {p: c[kern["name"]]
+                                    for p, c in launches.items()}
+        if kern["launches"] <= 0:
+            fail(f"kernel {kern['name']} was not launched on the HIV path")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

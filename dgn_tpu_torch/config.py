@@ -20,7 +20,7 @@ from .train.trainer import TrainParams
 @dataclasses.dataclass
 class DataParams:
     """Dataset options the reference passes as CLI-only flags."""
-    data_dir: str = ""            # root holding ZINC.pkl; "" -> synthetic
+    data_dir: str = ""            # root of the dataset files; "" -> synthetic
     cache_dir: str = ""           # eig cache location (real-file loaders)
     pos_enc_dim: int = 0
     lap_norm: str = "none"        # none | sym | walk
@@ -30,7 +30,7 @@ class DataParams:
     layout: str = "auto"          # auto = mxu, the block layout
     n_buckets: int = 1
     geometry: str = "typical"     # pad sizing of the shuffled train loader
-    micro_batches: Any = "auto"   # auto = 1: the 128-graph batch is one unit
+    micro_batches: Any = "auto"   # auto = ceil(batch_size / 1024); only 1 runs
 
 
 @dataclasses.dataclass
@@ -47,6 +47,10 @@ class ExperimentConfig:
         d = self.dataset.upper()
         if d in ("ZINC", "ZINC-FULL"):
             return "zinc"
+        if d == "HIV":
+            return "hiv"
+        if d == "PCBA":
+            return "pcba"
         raise NotImplementedError(f"dataset {self.dataset!r} is not ported yet")
 
 

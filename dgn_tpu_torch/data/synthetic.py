@@ -1,9 +1,10 @@
-"""Synthetic ZINC-like molecules (counterpart of
-`dgn_tpu/data/synthetic.py:synthetic_zinc`).
+"""Synthetic molecules (counterpart of `dgn_tpu/data/synthetic.py`:
+`synthetic_zinc` and `synthetic_ogb_mol`).
 
-The same generator and numpy seed stream as the reference package, so both
-produce identical graphs: 9..37 atoms, integer atom/bond types, valence-
-bounded sparse structure, and a learnable structure-dependent scalar target.
+The same generators and numpy seed streams as the reference package, so both
+produce identical graphs: valence-bounded sparse structure, integer atom and
+bond features, and learnable structure-dependent targets (a scalar for ZINC,
+binary labels for ogbg-molhiv/molpcba).
 """
 from __future__ import annotations
 
@@ -64,4 +65,66 @@ def synthetic_zinc(num_graphs: int, seed: int = 0,
         out.append(GraphData(num_nodes=n, src=src, dst=dst, node_feat=atom,
                              eig=eig, edge_feat=bond,
                              label=np.array([target], np.float32)))
+    return out
+
+
+_SCORE_PROBE = None
+
+
+def _score_probe(n: int = 2048) -> np.ndarray:
+    """Fixed-seed sample of the synthetic_ogb_mol score distribution:
+    structure only, no eig solve, so it is cheap and computed once."""
+    global _SCORE_PROBE
+    if _SCORE_PROBE is None:
+        rng = np.random.default_rng(123456789)
+        scores = np.empty(n)
+        for i in range(n):
+            nn = int(rng.integers(10, 40))
+            src, dst = _random_molecule_graph(rng, nn)
+            atom0 = rng.integers(0, 8, size=(nn,))
+            deg = np.bincount(dst, minlength=nn)
+            scores[i] = deg.mean() + atom0.mean() * 0.3 + nn * 0.02
+        _SCORE_PROBE = scores
+    return _SCORE_PROBE
+
+
+def synthetic_ogb_mol(num_graphs: int, seed: int = 0, n_tasks: int = 1,
+                      k_eig: int = 4, norm: str = "none",
+                      nan_frac: float = 0.0) -> List[GraphData]:
+    """ogbg-mol{hiv,pcba}-like: 9-column int atom features, 3-column bond
+    features, binary (or n_tasks-wide, NaN-sparse) labels from structure.
+
+    The labels threshold each graph's score at quantiles of a large
+    fixed-seed probe of the score distribution (_score_probe), not of this
+    call's graphs, so the train/val/test splits share one label function and
+    the single-task labels are balanced."""
+    from ..models.encoders import ATOM_FEATURE_DIMS, BOND_FEATURE_DIMS
+    rng = np.random.default_rng(seed)
+    out = []
+    scores = []
+    for _ in range(num_graphs):
+        n = int(rng.integers(10, 40))
+        src, dst = _random_molecule_graph(rng, n)
+        atom = np.stack([rng.integers(0, min(d, 8), size=(n,))
+                         for d in ATOM_FEATURE_DIMS], axis=1).astype(np.int32)
+        e_und = len(src) // 2
+        bond_u = np.stack([rng.integers(0, min(d, 4), size=(e_und,))
+                           for d in BOND_FEATURE_DIMS], axis=1)
+        bond = np.concatenate([bond_u, bond_u]).astype(np.int32)
+        eig = spectral.graph_eig(n, src, dst, k_eig, norm)
+        deg = np.bincount(dst, minlength=n)
+        scores.append(deg.mean() + atom[:, 0].mean() * 0.3 + n * 0.02)
+        out.append(GraphData(num_nodes=n, src=src, dst=dst, node_feat=atom,
+                             eig=eig, edge_feat=bond, label=None))
+    scores = np.asarray(scores)
+    probe = _score_probe()
+    if n_tasks == 1:
+        thr = np.quantile(probe, 0.5)[None]
+    else:
+        thr = np.quantile(probe, np.linspace(0.25, 0.75, n_tasks))
+    for g, sc in zip(out, scores):
+        label = (sc > thr).astype(np.float32)
+        if n_tasks > 1 and nan_frac > 0:
+            label[rng.random(n_tasks) < nan_frac] = np.nan
+        g.label = label
     return out

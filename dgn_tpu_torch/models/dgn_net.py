@@ -1,14 +1,17 @@
 """The DGN task network (counterpart of `dgn_tpu/models/dgn_net.py`).
 
-Structure: atom-type embedding -> L complex DGN layers ((L-1) at hidden_dim,
-the last at out_dim; reference molecules dgn_net.py:40-50) -> mean readout
--> MLPReadout.  The batch-constant EdgeContext (eig deltas, weight families,
-adjacency blocks) is built once per forward pass, or reused when the batch
-arrives with one attached (the trainer's eval cache).
+Structure: node encoder (atom-type Embedding for ZINC, the OGB AtomEncoder
+for HIV/PCBA) -> L simple or complex DGN layers ((L-1) at hidden_dim, the
+last at out_dim; reference molecules dgn_net.py:40-50), each ending in
+dropout -> mean readout -> MLPReadout.  The batch-constant EdgeContext (eig
+deltas, weight families, adjacency blocks) is built once per forward pass,
+or reused when the batch arrives with one attached (the trainer's eval
+cache).
 
 `DGNConfig` keeps the reference's full field set so the same JSON configs
-load; `DGNModel` raises NotImplementedError for any value this slice does
-not cover instead of silently running something else.
+load; `DGNModel` raises NotImplementedError for any value the port does not
+cover yet (towers, the virtual node, edge features, input dropout, deeper
+pretrans/posttrans, bf16) instead of silently running something else.
 """
 from __future__ import annotations
 
@@ -19,10 +22,11 @@ import torch
 from torch import nn
 
 from ..graph import GraphBatch
-from ..layers.dgn import DGNLayerComplex
+from ..layers.dgn import make_dgn_layer
 from ..nn import Embedding, MLPReadout
 from ..ops import aggregators as agg_ops
 from ..ops import scalers as scaler_ops
+from .encoders import AtomEncoder
 from .readout import graph_readout
 
 
@@ -70,16 +74,21 @@ class DGNConfig:
 
 
 def check_ported(cfg: DGNConfig) -> None:
-    """Raise NotImplementedError for a configuration this slice lacks."""
-    wanted = dict(type_net="complex", edge_feat=False, node_encoder="embedding",
-                  pretrans_layers=1, posttrans_layers=1, pos_enc_dim=0,
-                  in_feat_dropout=0.0, dropout=0.0, bn_axis=None,
+    """Raise NotImplementedError for a configuration the port lacks."""
+    if cfg.type_net not in ("simple", "complex"):
+        raise NotImplementedError(f"type_net {cfg.type_net!r} is not ported "
+                                  "yet (simple and complex are)")
+    if cfg.node_encoder not in ("embedding", "atom"):
+        raise NotImplementedError(f"node_encoder {cfg.node_encoder!r} is not "
+                                  "ported yet (embedding and atom are)")
+    wanted = dict(edge_feat=False, pretrans_layers=1, posttrans_layers=1,
+                  pos_enc_dim=0, in_feat_dropout=0.0, bn_axis=None,
                   compute_dtype=None, decompose=True)
     for name, value in wanted.items():
         if getattr(cfg, name) != value:
             raise NotImplementedError(
                 f"DGNConfig.{name}={getattr(cfg, name)!r} is not ported yet "
-                f"(this slice runs {name}={value!r})")
+                f"(the port runs {name}={value!r})")
     if cfg.virtual_node and cfg.virtual_node.lower() != "none":
         raise NotImplementedError("the virtual node is not ported yet")
     if cfg.readout not in ("mean", "default"):
@@ -96,7 +105,7 @@ def edge_context_for(gb: GraphBatch, cfg: DGNConfig) -> agg_ops.EdgeContext:
 
 
 class DGNModel(nn.Module):
-    """Embedding -> L x DGNLayerComplex -> mean readout -> MLPReadout.
+    """Node encoder -> L x DGN layer -> mean readout -> MLPReadout.
 
     Children carry the reference's parameter names (embedding_h, layer_i,
     MLP_layer) so convert.load_jax_params maps one tree onto the other."""
@@ -106,25 +115,34 @@ class DGNModel(nn.Module):
         check_ported(cfg)
         self.cfg = cfg
         avg_d = cfg.avg_d or {"log": 1.0, "lin": 1.0}
-        self.embedding_h = Embedding(cfg.num_node_types, cfg.hidden_dim,
-                                     generator)
+        if cfg.node_encoder == "atom":
+            self.embedding_h = AtomEncoder(cfg.hidden_dim, generator)
+        else:
+            self.embedding_h = Embedding(cfg.num_node_types, cfg.hidden_dim,
+                                         generator)
         in_dim = cfg.hidden_dim
         for i in range(cfg.L):
             out_dim = cfg.out_dim if i == cfg.L - 1 else cfg.hidden_dim
-            self.add_module(f"layer_{i}", DGNLayerComplex(
-                in_dim, out_dim, cfg.agg_names(), cfg.scaler_names(), avg_d,
-                generator, graph_norm=cfg.graph_norm,
-                batch_norm=cfg.batch_norm, residual=cfg.residual))
+            self.add_module(f"layer_{i}", make_dgn_layer(
+                cfg.type_net, in_dim=in_dim, out_dim=out_dim,
+                aggregators=cfg.agg_names(), scalers=cfg.scaler_names(),
+                avg_d=avg_d, generator=generator, dropout=cfg.dropout,
+                graph_norm=cfg.graph_norm, batch_norm=cfg.batch_norm,
+                residual=cfg.residual))
             in_dim = out_dim
         self.MLP_layer = MLPReadout(in_dim, cfg.n_out, generator,
                                     L=cfg.readout_L,
                                     decreasing_dim=cfg.decreasing_dim)
 
-    def forward(self, gb: GraphBatch) -> torch.Tensor:
-        """[G, n_out] scores.  Batch norm follows self.training."""
+    def forward(self, gb: GraphBatch,
+                dropout_generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """[G, n_out] scores.  Batch norm and dropout follow self.training;
+        dropout > 0 in training draws its masks from dropout_generator, a
+        torch.Generator on the model's device."""
         if gb.edge_ctx is None:
             gb = dataclasses.replace(gb, edge_ctx=edge_context_for(gb, self.cfg))
         h = self.embedding_h(gb.node_feat)
         for i in range(self.cfg.L):
-            h = getattr(self, f"layer_{i}")(gb, h)
+            h = getattr(self, f"layer_{i}")(gb, h, dropout_generator)
         return self.MLP_layer(graph_readout(gb, h, self.cfg.readout))

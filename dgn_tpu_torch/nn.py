@@ -8,10 +8,13 @@ distributions and draw from an explicit torch.Generator:
     uniform with gain 1/in_size, zero bias (reference nets/layers.py:96-99);
   * Linear (MLPReadout): torch.nn.Linear's default U(+-1/sqrt(in));
   * Embedding: N(0, 1).
+`dropout` has flax `nn.Dropout` semantics and draws from an explicit
+generator on the tensor's device.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -96,6 +99,24 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.mean, self.var
         return (x - mean) * torch.rsqrt(var + self.epsilon) * self.scale \
             + self.bias
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `nn.Dropout` semantics: in training, keep each element with
+    probability 1 - rate and scale the kept ones by 1 / (1 - rate); outside
+    training, or at rate 0, the identity.  The mask draws from `generator`,
+    which must live on x's device (no global random state)."""
+    if not training or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs an explicit "
+                         "torch.Generator on the model's device")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class MLPReadout(nn.Module):

@@ -16,15 +16,17 @@ once per forward pass by `build_edge_context` (`mxu.build_pair_adjacency`).
 Formulas (reference nets/aggregators.py:35-71), d_e = eig_u[k] - eig_v[k],
 S_k(v) = sum_{e->v} |d_e|:
   mean/sum/var/std   : plain reductions of the messages
+  max/min            : max_e msg_e = max_e g[src_e] + q[v], over the edge
+                       values ge = g[src] by the CUDA kernel pair
+                       (`ops/extremes.py`), 0 for nodes without an edge
   dir{k}-av          : sum_e |d_e| / (S_k(v)+EPS) * msg_e
   dir{k}-dx          : | sum_e d_e msg_e - (sum_e d_e) h_v | / (S_k(v)+EPS)
   dir{k}-dx-no-abs   : same, without the abs
   dir{k}-dx-balanced : the relu(+d) and relu(-d) halves, each normalized
 
 Not ported yet, and raising NotImplementedError rather than falling back:
-max/min (the reference's ops/extremes.py), the softmax families
-(dir{k}-0.1, dir{k}-neg-0.1), edge features (c_edge), the flat layout and
-the edge-partitioned split.
+the softmax families (dir{k}-0.1, dir{k}-neg-0.1), edge features (c_edge),
+the flat layout and the edge-partitioned split.
 """
 from __future__ import annotations
 
@@ -34,14 +36,14 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from . import mxu
+from . import extremes, mxu
 from .segment import EPS, gather, segment_sum
 
 _DIR_RE = re.compile(
     r"^dir(?P<k>\d+)-(?P<kind>av|smooth|dx|dx-no-abs|dx-balanced|0\.1|neg-0\.1)$")
 
 _PLAIN = ("mean", "sum", "max", "min", "std", "var")
-_PORTED_PLAIN = ("mean", "sum", "var", "std")
+_PORTED_PLAIN = ("mean", "sum", "max", "min", "var", "std")
 _PORTED_DIR = ("av", "smooth", "dx", "dx-no-abs", "dx-balanced")
 
 
@@ -52,7 +54,8 @@ class EdgeContext:
     fam_w: {key: [E]} edge-mask-folded weights of each family ("one",
     "abs{k}", "delta{k}", "pos{k}", "neg{k}"); fam_tot: {key: [N]} their
     per-destination totals; adj: the [P, K, 128, 128] adjacency blocks of the
-    families in adj_keys order."""
+    families in adj_keys order (None when no aggregator needs one)."""
+    src: torch.Tensor
     dst: torch.Tensor
     edge_mask: torch.Tensor
     degree: torch.Tensor
@@ -60,7 +63,7 @@ class EdgeContext:
     num_nodes: int
     fam_w: Dict[str, torch.Tensor]
     fam_tot: Dict[str, torch.Tensor]
-    adj: torch.Tensor
+    adj: Optional[torch.Tensor]
     adj_keys: Tuple[str, ...]
 
     def to(self, device) -> "EdgeContext":
@@ -97,14 +100,16 @@ def check_ported(names: Sequence[str]) -> None:
         if n in _PORTED_PLAIN or (d is not None and d[1] in _PORTED_DIR):
             continue
         raise NotImplementedError(
-            f"aggregator {n!r} is not ported yet (max/min and the softmax "
-            "families wait for a later slice)")
+            f"aggregator {n!r} is not ported yet (the softmax families wait "
+            "for a later slice)")
 
 
 def _scatter_keys(name: str) -> tuple:
     """Weight-family keys whose FULL feature sums `name` consumes."""
     if name in ("mean", "sum", "var", "std"):
         return ("one",)
+    if name in ("max", "min"):
+        return ()
     k, kind = _dir_spec(name)
     if kind in ("av", "smooth"):
         return (f"abs{k}",)
@@ -181,10 +186,12 @@ def build_edge_context(eig: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                                      mxu_layout.edge_chunk_dst,
                                      mxu_layout.n_node_blocks)[:n]
         fam_tot = {k: tots[:, i] for i, k in enumerate(tot_keys)}
-    adj = mxu.build_pair_adjacency(
-        torch.stack([fam_w[k] for k in adj_keys]), mxu_layout,
-        out_dtype=adj_dtype)
-    return EdgeContext(dst=dst, edge_mask=edge_mask, degree=degree,
+    adj = None
+    if adj_keys:
+        adj = mxu.build_pair_adjacency(
+            torch.stack([fam_w[k] for k in adj_keys]), mxu_layout,
+            out_dtype=adj_dtype)
+    return EdgeContext(src=src, dst=dst, edge_mask=edge_mask, degree=degree,
                        eig_delta=delta, num_nodes=n, fam_w=fam_w,
                        fam_tot=fam_tot, adj=adj, adj_keys=adj_keys)
 
@@ -213,11 +220,13 @@ def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
                          "with the same names")
 
     nb = layout.n_node_blocks
-    gp = g_node.reshape(nb, mxu.TILE, f)[layout.pair_src]       # [P, T, F]
-    T = mxu.pair_adj_matmul(ctx.adj, gp)                         # [P, K, T, F]
-    Sb = segment_sum(T, layout.pair_dst, nb)                     # [nb, K, T, F]
-    Sb = Sb.transpose(0, 1).reshape(len(full_keys), -1, f)
-    S = {k: Sb[i][:n] for i, k in enumerate(full_keys)}
+    S = {}
+    if full_keys:
+        gp = g_node.reshape(nb, mxu.TILE, f)[layout.pair_src]   # [P, T, F]
+        T = mxu.pair_adj_matmul(ctx.adj, gp)                     # [P, K, T, F]
+        Sb = segment_sum(T, layout.pair_dst, nb)                 # [nb, K, T, F]
+        Sb = Sb.transpose(0, 1).reshape(len(full_keys), -1, f)
+        S = {k: Sb[i][:n] for i, k in enumerate(full_keys)}
     if need_sq:
         one = ctx.adj[:, full_keys.index("one")]
         T2 = mxu.pair_adj_matmul(one[:, None], gp * gp)[:, 0]   # [P, T, F]
@@ -228,6 +237,12 @@ def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
     degc = deg.clamp_min(1.0)[:, None]
     has_edge = (deg > 0)[:, None]
     q = q_node
+    # the extremes are not weighted sums: they take the per-edge values
+    # g[src], and only they do
+    ext = None
+    if "max" in names or "min" in names:
+        ext = extremes.segment_extremes(gather(g_node, ctx.src), layout,
+                                        ctx.edge_mask, n)
     outs = []
     for name in names:
         if name == "sum":
@@ -242,6 +257,11 @@ def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
             m2 = torch.where(has_edge, S["one"][:, f:2 * f] / degc, 0.0)
             var = torch.relu(m2 - m1 * m1)
             outs.append(var if name == "var" else torch.sqrt(var + EPS))
+        elif name in ("max", "min"):
+            # the kernel pair already writes 0 for nodes without an edge
+            s = ext[0] if name == "max" else ext[1]
+            outs.append(torch.where(has_edge, s + q, 0.0) if q is not None
+                        else s)
         else:
             k, kind = _dir_spec(name)
             if kind in ("av", "smooth"):

@@ -1,8 +1,11 @@
 """Task losses, masked for padding (counterpart of `dgn_tpu/train/losses.py`).
 
-Only the L1 loss of ZINC (reference nets/molecules_graph_regression/
-dgn_net.py:90-92) is ported.  Means are over real graphs only, which matches
-the reference exactly because its batches are never padded."""
+L1 (ZINC, reference nets/molecules_graph_regression/dgn_net.py:90-92),
+BCE with logits (HIV, :87-89) and NaN-masked 128-task BCE (PCBA
+dgn_net.py:99-102, train_PCBA_graph_classification.py:32-33).  Means are
+over real elements only, which matches the reference exactly because its
+batches are never padded.  The cross-entropies of SBM and superpixels are
+not ported yet."""
 from __future__ import annotations
 
 import torch
@@ -19,3 +22,28 @@ def l1_loss(scores: torch.Tensor, targets: torch.Tensor,
     diff = (scores.squeeze(-1) - targets.squeeze(-1)
             if targets.ndim == scores.ndim else scores.squeeze(-1) - targets)
     return _masked_mean(diff.abs(), mask)
+
+
+def _bce_terms(z: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Elementwise BCE with logits in the stable form
+    relu(z) - z*y + log1p(exp(-|z|)), logits clipped to [-60, 60]."""
+    z = z.clamp(-60.0, 60.0)
+    return torch.relu(z) - z * labels + torch.log1p(torch.exp(-z.abs()))
+
+
+def bce_with_logits(scores: torch.Tensor, labels: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """Binary cross-entropy with logits, masked mean (HIV)."""
+    if scores.ndim > labels.ndim:
+        scores = scores.squeeze(-1)
+    return _masked_mean(_bce_terms(scores, labels), mask)
+
+
+def masked_bce_multitask(scores: torch.Tensor, labels: torch.Tensor,
+                         graph_mask: torch.Tensor) -> torch.Tensor:
+    """PCBA: BCE over the tasks, NaN labels excluded (is_labeled = labels ==
+    labels, reference train_PCBA:32-33), mean over labeled entries."""
+    is_labeled = (labels == labels) & graph_mask[:, None]
+    safe = torch.where(is_labeled, labels, 0.0)
+    m = is_labeled.to(scores.dtype)
+    return (_bce_terms(scores, safe) * m).sum() / m.sum().clamp_min(1.0)

@@ -9,8 +9,14 @@ each step moves its batch over.  Eval batches that a loader replays
 (BatchLoader(cache=True)) keep their device copy with the EdgeContext
 attached, so their adjacency blocks are built once (with_edge_context).
 
+Tasks: ZINC (MAE; the plateau scheduler steps on the validation loss),
+ogbg-molhiv (ROC-AUC) and ogbg-molpcba (mean per-task AP); for the last two
+the objective is maximised and the scheduler steps on -objective (reference
+main_HIV.py:144).  Dropout draws from one torch.Generator on the trainer's
+device, seeded from params.seed.
+
 Not ported yet: augmentation (flip / rotate / distort), micro-batching,
-checkpointing, and tasks other than ZINC.
+checkpointing, and the SBM and superpixel tasks.
 """
 from __future__ import annotations
 
@@ -44,12 +50,15 @@ class TrainParams:
     distortion: float = 0.0
 
 
+TASKS = ("zinc", "hiv", "pcba")
+
+
 class Trainer:
-    """Single-device training loop for the ZINC task."""
+    """Single-device training loop for the ZINC, HIV and PCBA tasks."""
 
     def __init__(self, model: torch.nn.Module, loss_fn, params: TrainParams,
                  task: str = "zinc", device="cuda"):
-        if task != "zinc":
+        if task not in TASKS:
             raise NotImplementedError(f"task {task!r} is not ported yet")
         if params.flip or params.augmentation > 1e-7 \
                 or params.distortion > 1e-7:
@@ -60,6 +69,8 @@ class Trainer:
         self.loss_fn = loss_fn
         self.p = params
         self.task = task
+        self.dropout_generator = torch.Generator(
+            device=self.device).manual_seed(params.seed)
         self.optimizer = adam_l2(self.model.parameters(), params.init_lr,
                                  params.weight_decay)
         self.scheduler = ReduceLROnPlateau(
@@ -75,7 +86,7 @@ class Trainer:
         gb = gb.to(self.device)
         self.model.train()
         set_learning_rate(self.optimizer, self.scheduler.lr)
-        scores = self.model(gb)
+        scores = self.model(gb, self.dropout_generator)
         loss = self.loss_fn(scores, gb)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -105,14 +116,14 @@ class Trainer:
 
     # ------------------------------------------------------------- epochs
     def train_epoch(self, loader) -> Dict[str, float]:
-        acc = _MetricAccumulator()
+        acc = _MetricAccumulator(self.task)
         for gb in loader:
             loss, scores = self.train_step(gb)
             acc.add(gb, scores.cpu().numpy(), float(loss))
         return acc.result()
 
     def evaluate(self, loader) -> Dict[str, float]:
-        acc = _MetricAccumulator()
+        acc = _MetricAccumulator(self.task)
         # context reuse only helps a loader that replays identical batch
         # objects; otherwise id() never hits and the cache would only grow
         reuse = getattr(loader, "cache", False)
@@ -130,6 +141,7 @@ class Trainer:
         best_val = None
         best_epoch = -1
         test_at_best = None
+        maximize = self.task in ("hiv", "pcba")
         for epoch in range(p.epochs):
             te0 = time.time()
             train_m = self.train_epoch(train_loader)
@@ -140,8 +152,10 @@ class Trainer:
                                 val=val_m, test=test_m))
             if val_m is not None:
                 obj = val_m["objective"]
-                self.scheduler.step(obj)
-                if best_val is None or obj < best_val:
+                # the plateau scheduler steps on the minimised objective
+                self.scheduler.step(-obj if maximize else obj)
+                if best_val is None or (obj > best_val if maximize
+                                        else obj < best_val):
                     best_val, best_epoch = obj, epoch
                     test_at_best = test_m
             if epoch % p.print_epoch_interval == 0:
@@ -159,24 +173,44 @@ class Trainer:
 
 
 class _MetricAccumulator:
-    """ZINC epoch metric, padding-stripped, reference semantics: mean of
-    per-batch MAEs, and the mean batch loss as the scheduler objective."""
+    """Task epoch metric, padding-stripped, reference semantics: ZINC the
+    mean of per-batch MAEs with the mean batch loss as the objective; HIV
+    ROC-AUC and PCBA mean per-task AP over the epoch's concatenated scores
+    and labels, each its own objective."""
 
-    def __init__(self):
+    def __init__(self, task: str):
+        self.task = task
         self.loss_sum = 0.0
         self.n_batches = 0
         self.per_batch = []
+        self.scores = []
+        self.labels = []
 
     def add(self, gb: GraphBatch, scores: np.ndarray, loss: float):
         self.loss_sum += loss
         self.n_batches += 1
         gmask = gb.graph_mask.cpu().numpy()
-        self.per_batch.append(M.mae(scores[gmask].reshape(-1),
-                                    gb.labels.cpu().numpy()[gmask].reshape(-1)))
+        labels = gb.labels.cpu().numpy()[gmask]
+        if self.task == "zinc":
+            self.per_batch.append(M.mae(scores[gmask].reshape(-1),
+                                        labels.reshape(-1)))
+        else:
+            self.scores.append(scores[gmask])
+            self.labels.append(labels)
 
     def result(self) -> Dict[str, float]:
         out = {"loss": self.loss_sum / max(self.n_batches, 1)}
-        out["mae"] = (float(np.mean(self.per_batch)) if self.per_batch
-                      else float("nan"))
-        out["objective"] = out["loss"]
+        if self.task == "zinc":
+            out["mae"] = (float(np.mean(self.per_batch)) if self.per_batch
+                          else float("nan"))
+            out["objective"] = out["loss"]
+            return out
+        s = np.concatenate(self.scores) if self.scores else np.zeros((0, 1))
+        y = np.concatenate(self.labels) if self.labels else np.zeros((0, 1))
+        if self.task == "hiv":
+            out["rocauc"] = M.roc_auc(s, y) if len(s) else float("nan")
+            out["objective"] = out["rocauc"]
+        else:
+            out["ap"] = M.multitask_ap(s, y) if len(s) else float("nan")
+            out["objective"] = out["ap"]
         return out

@@ -1,13 +1,14 @@
 """Decomposed aggregators of the port == dgn_tpu's, forward and gradients.
 
-For each aggregator the canonical configs use or the adjacency path covers,
+For each aggregator the canonical configs use or the port covers,
 the same block-layout batch and the same node inputs (g, q, h_in from a
 seeded numpy generator) go through dgn_tpu's build_edge_context +
 aggregate_decomposed and through the port's.  The outputs and the gradients
 with respect to g, q and h_in (a vector-Jacobian product with one shared
 random cotangent) must agree at rtol 1e-5, atol 1e-6: both are f32, and
 only the summation order differs (XLA one-hot products vs index_add_ and
-torch.matmul).
+torch.matmul); max/min pick one input value and split tie gradients
+equally on both sides.
 """
 from __future__ import annotations
 
@@ -28,8 +29,8 @@ from dgn_tpu_torch.ops import aggregators as tagg
 
 torch.set_num_threads(1)
 
-NAMES = ["mean", "sum", "var", "std", "dir1-av", "dir1-dx", "dir1-dx-no-abs",
-         "dir1-dx-balanced"]
+NAMES = ["mean", "sum", "max", "min", "var", "std", "dir1-av", "dir1-dx",
+         "dir1-dx-no-abs", "dir1-dx-balanced"]
 F = 6
 
 
@@ -83,7 +84,7 @@ def test_aggregate_decomposed_matches_reference(name):
                                    err_msg=f"grad wrt {label}")
 
 
-@pytest.mark.parametrize("name", ["max", "dir1-0.1"])
+@pytest.mark.parametrize("name", ["dir1-neg-0.1", "dir1-0.1"])
 def test_unported_aggregators_raise(name):
     _, tb = _batches()
     with pytest.raises(NotImplementedError):

@@ -52,7 +52,7 @@ def test_run_without_gpu_refuses_cpu_fallback():
                                    ["--micro_batches", "2"],
                                    ["--flip", "true"],
                                    ["--compute_dtype", "bfloat16"],
-                                   ["--dataset", "HIV"]])
+                                   ["--dataset", "MNIST"]])
 def test_run_rejects_unported_options(flags):
     with pytest.raises(NotImplementedError):
         trun.run(SMALL + ["--device", "cpu"] + flags)
