@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (dgn_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernels]
 
 Run from the root of a checkout, on a machine with a CUDA GPU (written for
-the H100) and the CUDA toolkit.  Phases, each of which fails the script:
+the H100) and the CUDA toolkit.  `--phases kernels` runs phases 1-3 only, to
+try a kernel in seconds; it prints the kernels line with `launches` null
+and no device line.  Phases, each of which fails the script:
 
 1. card: name and power limit from nvidia-smi; no CUDA device -> exit 1;
 2. build: every CUDA kernel of the package, from the checkout's sources, one
@@ -14,7 +16,7 @@ the H100) and the CUDA toolkit.  Phases, each of which fails the script:
    the plain version, one equivalent PyTorch call and the card's bound:
    build_pair_adjacency at the ZINC batch (plus a multi-block case and bf16
    output), the segment_extremes forward/backward pair at the HIV batch
-   (plus tie, star and multi-block cases);
+   (plus tie, star, multi-block and dense-block cases) with its grids;
 4. training, once per path: the port's entry point (dgn_tpu_torch.run)
    trains the canonical ZINC config, then the HIV config, at full width on
    the card, with every kernel launch counter set to 0 just before and read
@@ -27,10 +29,12 @@ than nvidia-smi and nvcc, and waits for each.
 """
 from __future__ import annotations
 
+import argparse
 import copy
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -235,6 +239,19 @@ def star_graph(np, GraphData, n: int = 120, hub: int = 10):
                      label=np.zeros(1, np.float32))
 
 
+def dense_graph(np, GraphData, n: int = 128):
+    """One graph at density 0.3: 40 chunks in one dst block, more than the
+    extremes kernels stage at once, in-degree up to 51."""
+    rng = np.random.default_rng(5)
+    us, vs = np.nonzero(np.triu(rng.random((n, n)) < 0.3, k=1))
+    return GraphData(num_nodes=n,
+                     src=np.concatenate([us, vs]).astype(np.int32),
+                     dst=np.concatenate([vs, us]).astype(np.int32),
+                     node_feat=np.zeros(n, np.int32),
+                     eig=np.zeros((n, 2), np.float32),
+                     label=np.zeros(1, np.float32))
+
+
 def extremes_phase(torch, np):
     """The segment_extremes kernel pair against its plain version (forward
     and autograd backward) and an f64 oracle, then timed at the HIV main
@@ -258,10 +275,12 @@ def extremes_phase(torch, np):
 
     star = packed([star_graph(np, GraphData)])
     sbm = packed(multiblock_graphs(np, GraphData))
+    dense = packed([dense_graph(np, GraphData)])
     cases = [("hiv_main_f70", hiv, ge_main),
              ("hiv_quantized_ties", hiv, quantized(hiv, f_main)),
              ("star_in_degree_119", star, quantized(star, 16)),
-             ("sbm_multiblock", sbm, quantized(sbm, 16))]
+             ("sbm_multiblock", sbm, quantized(sbm, 16)),
+             ("dense_block", dense, quantized(dense, f_main))]
     err_fwd = err_bwd = None
     for name, gb, vals in cases:
         layout, mask = gb.mxu.to(dev), gb.edge_mask.to(dev)
@@ -348,6 +367,11 @@ def extremes_phase(torch, np):
     bwd_bytes = n_real * f * 4 + index_bytes + 4 * n * f * 4 + e_pad * f * 4
     fwd_bound, fwd_by = bound(fwd_bytes, 2 * n_real * f)
     bwd_bound, bwd_by = bound(bwd_bytes, 6 * n_real * f + 2 * n * f)
+    shape = extremes.launch_shape(f, n_chunks, layout.n_node_blocks)
+    print("kernel segment_extremes launch: " + "; ".join(
+        f"{k} grid {s['grid'][0]}x{s['grid'][1]} = "
+        f"{s['grid'][0] * s['grid'][1]} blocks of 256 threads, "
+        f"{s['smem_bytes']} dynamic shared bytes" for k, s in shape.items()))
     print(f"kernel segment_extremes timing: E={e_pad} ({n_real} real) "
           f"C={n_chunks} N={n} F={f}; forward {fwd_bytes} bytes: device ms "
           f"kernel {fwd_ms:.5f}, plain {pfwd_ms:.5f}, library "
@@ -534,6 +558,12 @@ def training_phase(torch, zinc_batch, hiv_batch):
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--phases", choices=("all", "kernels"),
+                        default="all",
+                        help="kernels: phases 1-3 only; the kernels line "
+                        "then has no launches and no device line follows")
+    args = parser.parse_args()
     if not (REPO / "dgn_tpu_torch").is_dir() or not CONFIG.is_file():
         fail("run chip_smoke.py from the root of a dgn_tpu checkout")
     import numpy as np
@@ -552,13 +582,21 @@ def main() -> None:
     logs = cuda_build.build(["adjacency", "extremes"])
     print(f"build: {time.time() - t:.1f}s")
     for name, log in logs.items():
+        kernel = name
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+            if "entry function" in line:
+                found = re.findall(r"[a-z_]+_kernel", line)
+                kernel = found[0] if found else name
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {kernel}: {line.strip()}")
 
     adj, zinc_batch = adjacency_phase(torch, np)
     ext, hiv_batch = extremes_phase(torch, np)
     kernels = [adj] + ext
+    if args.phases == "kernels":
+        print(json.dumps({"kernels": kernels}))
+        print(f"card: {card_line()}")
+        return
     launches = training_phase(torch, zinc_batch, hiv_batch)
     # `launches` is each kernel's count on this slice's path (HIV); the
     # counts of every path stand beside it

@@ -55,8 +55,8 @@ def segment_extremes_plain(ge: torch.Tensor, layout, edge_mask: torch.Tensor,
 
 @functools.cache
 def _kernels():
-    """(forward, backward, error string) C functions of csrc/extremes.cu,
-    built on first use."""
+    """(forward, backward, error string, launch shape) C functions of
+    csrc/extremes.cu, built on first use."""
     from . import cuda_build
     lib = cuda_build.load("extremes")
     fwd = lib.dgn_segment_extremes_fwd
@@ -70,7 +70,19 @@ def _kernels():
     errstr = lib.dgn_cuda_error_string
     errstr.argtypes = [ctypes.c_int]
     errstr.restype = ctypes.c_char_p
-    return fwd, bwd, errstr
+    shape = lib.dgn_segment_extremes_launch_shape
+    shape.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    shape.restype = None
+    return fwd, bwd, errstr, shape
+
+
+def launch_shape(n_feat: int, n_chunks: int, n_blocks: int) -> dict:
+    """The kernels' grids and dynamic shared bytes per block at these sizes,
+    as csrc/extremes.cu launches them (builds the kernels on first use)."""
+    out = (ctypes.c_int * 6)()
+    _kernels()[3](n_feat, n_chunks, n_blocks, ctypes.addressof(out))
+    return {"fwd": {"grid": (out[0], out[1]), "smem_bytes": out[2]},
+            "bwd": {"grid": (out[3], out[4]), "smem_bytes": out[5]}}
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:

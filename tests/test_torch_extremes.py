@@ -8,7 +8,8 @@ through it and through the reference's scatter-free TPU lowering.  Cases:
 random values, quantized values (exact ties, also across edges of one
 node), a star of in-degree 119, a star whose run crosses a chunk boundary,
 multi-block graphs over 128 nodes (one node's edges in chunks of several
-src blocks), and isolated nodes beside all-negative values.
+src blocks), isolated nodes beside all-negative values, and one dense
+128-node graph whose 40 chunks all belong to one dst block.
 
 Tolerances: forward bit-identical (both pick one of the inputs); gradients
 of sum(w1*mx) + sum(sin(w1)*mn) at rtol = atol = 1e-6 (the equal tie split
@@ -68,6 +69,14 @@ def _isolated():
     return [_graph(5, [0, 1], [1, 0])]
 
 
+def _dense():
+    """One 128-node graph at density 0.3: E = 5120, 40 chunks in one dst
+    block (more than the kernels stage at once), in-degree up to 51."""
+    rng = np.random.default_rng(5)
+    us, vs = np.nonzero(np.triu(rng.random((128, 128)) < 0.3, k=1))
+    return [_graph(128, np.concatenate([us, vs]), np.concatenate([vs, us]))]
+
+
 def _molecules(n, seed):
     import dataclasses
     return [dataclasses.asdict(g) for g in tsyn.synthetic_zinc(n, seed=seed)]
@@ -81,6 +90,7 @@ CASES = {
     "star_run_crosses_chunk": (lambda: [_star(hub=10)], 5, "quantized"),
     "multiblock": (_multiblock, 6, "quantized"),
     "isolated_negative": (_isolated, 4, "negative"),
+    "dense_block": (_dense, 6, "quantized"),
 }
 
 
