@@ -11,17 +11,20 @@ and no device line.  Phases, each of which fails the script:
 1. card: name and power limit from nvidia-smi; no CUDA device -> exit 1;
 2. build: every CUDA kernel of the package, from the checkout's sources, one
    nvcc per source, all started together;
-3. kernels: each kernel at its main path's shapes, held against its plain
+3. kernels: each kernel at its paths' shapes, held against its plain
    PyTorch version on the card and against an f64 oracle, and timed beside
    the plain version, one equivalent PyTorch call and the card's bound:
-   build_pair_adjacency at the ZINC batch (plus a multi-block case and bf16
-   output), the segment_extremes forward/backward pair at the HIV batch
-   (plus tie, star, multi-block and dense-block cases) with its grids;
+   build_pair_adjacency at the ZINC and the CIFAR10 batch (plus a
+   multi-block case and bf16 output), the segment_extremes forward/backward
+   pair at the HIV batch and at one PCBA micro-batch (plus tie, star,
+   multi-block and dense-block cases) with its grids;
 4. training, once per path: the port's entry point (dgn_tpu_torch.run)
-   trains the canonical ZINC config, then the HIV config, at full width on
-   the card, with every kernel launch counter set to 0 just before and read
-   just after each run; then each path's step time and device activity, and
-   one step from identical weights on the CPU and on the card.
+   trains each config of PATHS (ZINC, HIV, PATTERN, CIFAR10, and PCBA at
+   its batch of 2048 in 2 micro-batches) at full width on the card, with
+   every kernel launch counter set to 0 just before and read just after
+   each run, and checked against the count the path's loaders imply; then
+   each path's step time and device activity, and one step from identical
+   weights on the CPU and on the card.
 
 Prints a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`.  Needs no network; starts no process other
@@ -42,8 +45,18 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-CONFIG = REPO / "configs" / "molecules_graph_regression_DGN_ZINC.json"
-HIV_CONFIG = REPO / "configs" / "molecules_graph_classification_DGN_HIV.json"
+CONFIGS = REPO / "configs"
+# (path, config, DGN layers with max/min, synthetic_size): PATTERN's 4096
+# gives 1024 train graphs (load_sbm keeps n // 4), PCBA's 4096 gives two
+# steps of 2048 graphs per epoch
+PATHS = (("zinc", "molecules_graph_regression_DGN_ZINC.json", 0, 1024),
+         ("hiv", "molecules_graph_classification_DGN_HIV.json", 4, 1024),
+         ("pattern", "SBMs_node_clustering_DGN_PATTERN.json", 0, 4096),
+         ("cifar10", "superpixels_graph_classification_DGN_CIFAR10.json", 0,
+          1024),
+         ("pcba", "molecules_graph_classification_DGN_PCBA.json", 4, 4096))
+EPOCHS = 2
+MIN_STEPS = 24           # timed train steps per path (the first 3 dropped)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 F32_TOL, BF16_TOL = 1e-6, 1e-2
@@ -138,20 +151,103 @@ def bound(bytes_moved: int, ops: int):
                                    else "operations")
 
 
+_PREPARED = {}
+
+
+def prepared(key: str):
+    """run.prepare's (ds, model, loss_fn, trainer, loaders) for the path and
+    its config, built once: the kernel phase takes its first train batch and
+    the training phase its loaders' batch counts, step and CPU-vs-card
+    check from the same dataset."""
+    if key not in _PREPARED:
+        from dgn_tpu_torch import run
+        from dgn_tpu_torch.config import load_config
+        _, name, _, size = next(p for p in PATHS if p[0] == key)
+        cfg = load_config(str(CONFIGS / name), {"synthetic_size": size})
+        _PREPARED[key] = run.prepare(cfg, DEVICE) + (cfg,)
+    return _PREPARED[key]
+
+
+def first_train_batch(key: str):
+    """The first batch the path's shuffled train loader yields (a list of
+    micro-batches for PCBA)."""
+    return next(iter(prepared(key)[4]["train"]))
+
+
+def family_weights(torch, gb, families):
+    """[K, E] edge-mask-folded weights of the families ("one", "delta{k}",
+    "abs{k}") as build_edge_context makes them, for a batch on the card."""
+    mask = gb.edge_mask.float()
+    rows = []
+    for fam in families:
+        if fam == "one":
+            rows.append(mask)
+            continue
+        k = int(fam[-1])
+        delta = gb.eig[gb.src.long(), k] - gb.eig[gb.dst.long(), k]
+        rows.append((delta.abs() if fam.startswith("abs") else delta) * mask)
+    return torch.stack(rows).contiguous()
+
+
+def time_adjacency(torch, w, layout, shape: str) -> dict:
+    """build_pair_adjacency at one shape: device ms of the kernel, the plain
+    version and the library call, and the card's bound."""
+    from dgn_tpu_torch.ops import adjacency
+    dev = w.device
+    k, e_pad = w.shape
+    p = layout.n_pairs
+    ms, call_ms = timed(
+        torch, lambda i: adjacency.build_pair_adjacency(w, layout))
+    plain_ms, plain_call_ms = timed(
+        torch, lambda i: adjacency.build_pair_adjacency_plain(w, layout))
+    # the library call: one accumulating index_put_ into a zeroed tensor.
+    # Checked once against the kernel; the timed calls then accumulate into
+    # the same tensor, which is the same work.
+    out = torch.zeros((p, k, 128, 128), device=dev)
+    idx = (layout.chunk_pair.long().repeat_interleave(128).expand(k, e_pad),
+           torch.arange(k, device=dev)[:, None].expand(k, e_pad),
+           layout.local_src.long().expand(k, e_pad),
+           layout.local_dst.long().expand(k, e_pad))
+    out.index_put_(idx, w, accumulate=True)
+    ref = adjacency.build_pair_adjacency(w, layout)
+    if (out - ref).abs().max().item() > F32_TOL:
+        fail("the library call does not compute build_pair_adjacency")
+    library_ms, library_call_ms = timed(
+        torch, lambda i: out.index_put_(idx, w, accumulate=True))
+    n_chunks = e_pad // 128
+    bytes_moved = (w.numel() * 4 + 2 * e_pad * 4 + 2 * n_chunks * 4
+                   + p * k * 128 * 128 * 4)
+    adds = int((w != 0).sum().item())
+    bound_ms, bound_by = bound(bytes_moved, adds)
+    covered = layout.pair_covered
+    off = int(((layout.pair_src != layout.pair_dst) & covered).sum())
+    print(f"kernel build_pair_adjacency timing ({shape}): K={k} E={e_pad} "
+          f"C={n_chunks} P={p} ({int(covered.sum())} covered, {off} of them "
+          f"off-diagonal), {bytes_moved} bytes, {adds} adds; device ms "
+          f"kernel {ms:.5f}, plain {plain_ms:.5f}, library {library_ms:.5f}, "
+          f"bound {bound_ms:.5f}; per call incl. host: kernel {call_ms:.5f}, "
+          f"plain {plain_call_ms:.5f}, library {library_call_ms:.5f}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
 def adjacency_phase(torch, np):
+    """build_pair_adjacency against its plain version and an f64 oracle,
+    then timed at the ZINC batch and at the CIFAR10 path's first batch
+    (graphs of 140-159 nodes, each spanning two node blocks, so the batch
+    has off-diagonal pairs).  One entry per shape: `build_pair_adjacency`
+    at the ZINC batch, `build_pair_adjacency@cifar10` at the CIFAR10 one."""
     from dgn_tpu_torch.data.synthetic import synthetic_zinc
     from dgn_tpu_torch.graph import GraphData
     from dgn_tpu_torch.ops import adjacency
 
-    # the main path's batch: 128 ZINC-like graphs, the three families of
-    # `mean dir1-dx dir1-av` (one, delta1, abs1) as build_edge_context
-    # makes them
-    zinc = packed(synthetic_zinc(512, seed=41)[:128])
     dev = torch.device(DEVICE)
-    gb = zinc.to(dev)
-    mask = gb.edge_mask.float()
-    delta = gb.eig[gb.src.long(), 1] - gb.eig[gb.dst.long(), 1]
-    w_main = torch.stack([mask, delta * mask, delta.abs() * mask]).contiguous()
+    # 128 graphs each, with the families their path's aggregators need:
+    # ZINC `mean dir1-dx dir1-av`, CIFAR10 `mean dir1-dx dir2-dx`
+    zinc = packed(synthetic_zinc(512, seed=41)[:128]).to(dev)
+    w_zinc = family_weights(torch, zinc, ("one", "delta1", "abs1"))
+    cifar = first_train_batch("cifar10").to(dev)
+    w_cifar = family_weights(torch, cifar, ("one", "delta1", "delta2"))
 
     sbm = packed(multiblock_graphs(np, GraphData))
     lay = sbm.mxu
@@ -162,10 +258,11 @@ def adjacency_phase(torch, np):
         rng.normal(size=(2, sbm.num_edges_padded)).astype(np.float32)
         * sbm.edge_mask.numpy()).to(dev)
 
-    cases = [("zinc_main_f32", w_main, gb.mxu, torch.float32),
-             ("zinc_main_bf16", w_main, gb.mxu, torch.bfloat16),
-             ("sbm_multiblock_f32", w_sbm, lay.to(dev), torch.float32)]
-    err_main = None
+    cases = [("zinc_main_f32", w_zinc, zinc.mxu, torch.float32),
+             ("zinc_main_bf16", w_zinc, zinc.mxu, torch.bfloat16),
+             ("sbm_multiblock_f32", w_sbm, lay.to(dev), torch.float32),
+             ("cifar10_main_f32", w_cifar, cifar.mxu, torch.float32)]
+    errs = {}
     for name, w, layout, dt in cases:
         got = adjacency.build_pair_adjacency(w, layout, dt)
         torch.cuda.synchronize()
@@ -180,49 +277,18 @@ def adjacency_phase(torch, np):
               f"max|kernel-f64 oracle| {e_oracle:.3g} (tol {tol:g})")
         if not (e_plain <= tol and e_oracle <= tol):
             fail(f"build_pair_adjacency {name} disagrees beyond {tol}")
-        if name == "zinc_main_f32":
-            err_main = e_plain
+        errs[name] = e_plain
+        del got, plain, oracle
 
-    # timing at the main path's shape, f32 output
-    layout = gb.mxu
-    k, e_pad = w_main.shape
-    p = layout.n_pairs
-    ms, call_ms = timed(
-        torch, lambda i: adjacency.build_pair_adjacency(w_main, layout))
-    plain_ms, plain_call_ms = timed(
-        torch, lambda i: adjacency.build_pair_adjacency_plain(w_main, layout))
-    # the library call: one accumulating index_put_ into a zeroed tensor.
-    # Checked once against the kernel; the timed calls then accumulate into
-    # the same tensor, which is the same work.
-    out = torch.zeros((p, k, 128, 128), device=dev)
-    idx = (layout.chunk_pair.long().repeat_interleave(128).expand(k, e_pad),
-           torch.arange(k, device=dev)[:, None].expand(k, e_pad),
-           layout.local_src.long().expand(k, e_pad),
-           layout.local_dst.long().expand(k, e_pad))
-    out.index_put_(idx, w_main, accumulate=True)
-    ref = adjacency.build_pair_adjacency(w_main, layout)
-    if (out - ref).abs().max().item() > F32_TOL:
-        fail("the library call does not compute build_pair_adjacency")
-    library_ms, library_call_ms = timed(
-        torch, lambda i: out.index_put_(idx, w_main, accumulate=True))
-    n_chunks = e_pad // 128
-    bytes_moved = (w_main.numel() * 4 + 2 * e_pad * 4 + 2 * n_chunks * 4
-                   + p * k * 128 * 128 * 4)
-    adds = int((w_main != 0).sum().item())
-    bound_ms, bound_by = bound(bytes_moved, adds)
-    print(f"kernel build_pair_adjacency timing: K={k} E={e_pad} C={n_chunks} "
-          f"P={p} ({int(layout.pair_covered.sum())} covered), "
-          f"{bytes_moved} bytes, {adds} adds; device ms kernel {ms:.5f}, "
-          f"plain {plain_ms:.5f}, library {library_ms:.5f}, bound "
-          f"{bound_ms:.5f}; per call incl. host: kernel "
-          f"{call_ms:.5f}, plain {plain_call_ms:.5f}, library "
-          f"{library_call_ms:.5f}")
-    return {"name": "build_pair_adjacency", "route": "cuda",
-            "source": "dgn_tpu_torch/ops/csrc/adjacency.cu",
-            "replaces": "dgn_tpu/ops/pallas/adjacency.py:83",
-            "launches": None, "max_abs_err": err_main, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}, zinc
+    common = {"route": "cuda", "source": "dgn_tpu_torch/ops/csrc/adjacency.cu",
+              "replaces": "dgn_tpu/ops/pallas/adjacency.py:83",
+              "launches": None}
+    return [dict(common, name="build_pair_adjacency", path="zinc",
+                 max_abs_err=errs["zinc_main_f32"],
+                 **time_adjacency(torch, w_zinc, zinc.mxu, "zinc")),
+            dict(common, name="build_pair_adjacency@cifar10", path="cifar10",
+                 max_abs_err=errs["cifar10_main_f32"],
+                 **time_adjacency(torch, w_cifar, cifar.mxu, "cifar10"))]
 
 
 def star_graph(np, GraphData, n: int = 120, hub: int = 10):
@@ -252,10 +318,95 @@ def dense_graph(np, GraphData, n: int = 128):
                      label=np.zeros(1, np.float32))
 
 
+def time_extremes(torch, np, gb, ge: np.ndarray, shape: str) -> list:
+    """The extremes forward and backward at one shape (gb on the CPU, ge its
+    [E, F] edge values): device ms of the kernel, the plain version (and its
+    autograd) and the library call, the card's bounds, and the grids."""
+    from dgn_tpu_torch.ops import extremes
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(9)
+    layout, mask = gb.mxu.to(dev), gb.edge_mask.to(dev)
+    n, f = gb.num_nodes_padded, ge.shape[1]
+    x = torch.from_numpy(ge).to(dev)
+    e_pad = x.shape[0]
+    n_chunks = e_pad // 128
+    n_real = int(mask.sum().item())
+    dst = (layout.edge_chunk_dst.long().repeat_interleave(128) * 128
+           + layout.local_dst.long())
+    n_dst = int(torch.unique(dst[mask]).numel())
+    dmx = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(dev)
+    dmn = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(dev)
+    mx, mn = extremes.segment_extremes_fwd(x, layout, mask, n)
+    fwd_ms, fwd_call = timed(
+        torch, lambda i: extremes.segment_extremes_fwd(x, layout, mask, n))
+    bwd_ms, bwd_call = timed(torch, lambda i: extremes.segment_extremes_bwd(
+        x, mx, mn, dmx, dmn, layout, mask))
+    pfwd_ms, pfwd_call = timed(
+        torch, lambda i: extremes.segment_extremes_plain(x, layout, mask, n))
+    xp = x.clone().requires_grad_()
+    pout = extremes.segment_extremes_plain(xp, layout, mask, n)
+    pbwd_ms, pbwd_call = timed(torch, lambda i: torch.autograd.grad(
+        pout, xp, (dmx, dmn), retain_graph=True))
+    # the library call: scatter_reduce amax and amin into a zeroed buffer
+    # whose extra row n takes the pad edges (include_self=False leaves rows
+    # without an edge at 0).  Checked once against the kernel.
+    idx = torch.where(mask, dst, n)[:, None].expand(-1, f).contiguous()
+    buf = torch.zeros((n + 1, f), device=dev)
+
+    def library(v):
+        return (buf.scatter_reduce(0, idx, v, "amax", include_self=False),
+                buf.scatter_reduce(0, idx, v, "amin", include_self=False))
+
+    lmx, lmn = library(x)
+    if not (torch.equal(lmx[:n], mx) and torch.equal(lmn[:n], mn)):
+        fail("the library call does not compute segment_extremes")
+    lib_fwd_ms, lib_fwd_call = timed(torch, lambda i: library(x))
+    xl = x.clone().requires_grad_()
+    lout = library(xl)
+    zero_row = torch.zeros((1, f), device=dev)
+    lct = (torch.cat([dmx, zero_row]), torch.cat([dmn, zero_row]))
+    lib_bwd_ms, lib_bwd_call = timed(torch, lambda i: torch.autograd.grad(
+        lout, xl, lct, retain_graph=True))
+    # bytes each must move: the real edges' values, the layout's index and
+    # mask arrays, and the outputs (forward: max and min [N, F]; backward:
+    # reads max, min and both cotangents at the n_dst nodes that real edges
+    # reach, writes d_ge [E, F] whole)
+    index_bytes = e_pad * 4 + e_pad + n_chunks * 4
+    fwd_bytes = n_real * f * 4 + index_bytes + 2 * n * f * 4
+    bwd_bytes = (n_real * f * 4 + index_bytes + 4 * n_dst * f * 4
+                 + e_pad * f * 4)
+    fwd_bound, fwd_by = bound(fwd_bytes, 2 * n_real * f)
+    bwd_bound, bwd_by = bound(bwd_bytes, 6 * n_real * f + 2 * n_dst * f)
+    launch = extremes.launch_shape(f, n_chunks, layout.n_node_blocks)
+    print(f"kernel segment_extremes launch ({shape}): " + "; ".join(
+        f"{k} grid {s['grid'][0]}x{s['grid'][1]} = "
+        f"{s['grid'][0] * s['grid'][1]} blocks of 256 threads, "
+        f"{s['smem_bytes']} dynamic shared bytes" for k, s in launch.items()))
+    print(f"kernel segment_extremes timing ({shape}): E={e_pad} ({n_real} "
+          f"real) C={n_chunks} N={n} ({n_dst} reached by a real edge, "
+          f"{layout.n_node_blocks} node blocks) "
+          f"F={f}; forward {fwd_bytes} bytes: device ms kernel "
+          f"{fwd_ms:.5f}, plain {pfwd_ms:.5f}, library {lib_fwd_ms:.5f}, "
+          f"bound {fwd_bound:.5f}; per call incl. host: kernel "
+          f"{fwd_call:.5f}, plain {pfwd_call:.5f}, library {lib_fwd_call:.5f}")
+    print(f"kernel segment_extremes timing ({shape}): backward {bwd_bytes} "
+          f"bytes: device ms kernel {bwd_ms:.5f}, plain (autograd) "
+          f"{pbwd_ms:.5f}, library (autograd) {lib_bwd_ms:.5f}, bound "
+          f"{bwd_bound:.5f}; per call incl. host: kernel {bwd_call:.5f}, "
+          f"plain {pbwd_call:.5f}, library {lib_bwd_call:.5f}")
+    return [{"ms": fwd_ms, "plain_ms": pfwd_ms, "bound_ms": fwd_bound,
+             "bound_by": fwd_by, "library_ms": lib_fwd_ms},
+            {"ms": bwd_ms, "plain_ms": pbwd_ms, "bound_ms": bwd_bound,
+             "bound_by": bwd_by, "library_ms": lib_bwd_ms}]
+
+
 def extremes_phase(torch, np):
     """The segment_extremes kernel pair against its plain version (forward
-    and autograd backward) and an f64 oracle, then timed at the HIV main
-    path's shape: a batch of 128 synthetic ogbg-molhiv graphs, F = 70."""
+    and autograd backward) and an f64 oracle, then timed at the HIV batch
+    (128 synthetic ogbg-molhiv graphs) and at one PCBA micro-batch (1024
+    synthetic ogbg-molpcba graphs of a 2048-graph batch), F = 70.  One
+    entry per kernel and shape: `segment_extremes_fwd`/`_bwd` at the HIV
+    batch, `segment_extremes_fwd@pcba`/`_bwd@pcba` at the PCBA one."""
     from dgn_tpu_torch.data.synthetic import synthetic_ogb_mol
     from dgn_tpu_torch.graph import GraphData
     from dgn_tpu_torch.ops import extremes
@@ -263,25 +414,31 @@ def extremes_phase(torch, np):
     dev = torch.device(DEVICE)
     f_main = 70
     hiv = packed(synthetic_ogb_mol(512, seed=41, n_tasks=1, k_eig=4)[:128])
+    pcba = first_train_batch("pcba")[0]
     rng = np.random.default_rng(7)
-    # what a layer hands the kernel: ge = h[src] of post-ReLU node features,
-    # so exact zeros tie (ReLU) and one src's value repeats across its edges
-    h = np.maximum(rng.normal(size=(hiv.num_nodes_padded, f_main)), 0.0)
-    ge_main = h.astype(np.float32)[hiv.src.numpy()]
+
+    def layer_values(gb):
+        # what a layer hands the kernel: ge = h[src] of post-ReLU node
+        # features, so exact zeros tie (ReLU) and one src's value repeats
+        # across its edges
+        h = np.maximum(rng.normal(size=(gb.num_nodes_padded, f_main)), 0.0)
+        return h.astype(np.float32)[gb.src.numpy()]
 
     def quantized(gb, f):
         v = rng.normal(size=(gb.num_edges_padded, f))
         return (np.round(v * 2.0) / 2.0).astype(np.float32)
 
+    ge_hiv, ge_pcba = layer_values(hiv), layer_values(pcba)
     star = packed([star_graph(np, GraphData)])
     sbm = packed(multiblock_graphs(np, GraphData))
     dense = packed([dense_graph(np, GraphData)])
-    cases = [("hiv_main_f70", hiv, ge_main),
+    cases = [("hiv_main_f70", hiv, ge_hiv),
              ("hiv_quantized_ties", hiv, quantized(hiv, f_main)),
              ("star_in_degree_119", star, quantized(star, 16)),
              ("sbm_multiblock", sbm, quantized(sbm, 16)),
-             ("dense_block", dense, quantized(dense, f_main))]
-    err_fwd = err_bwd = None
+             ("dense_block", dense, quantized(dense, f_main)),
+             ("pcba_micro_f70", pcba, ge_pcba)]
+    errs = {}
     for name, gb, vals in cases:
         layout, mask = gb.mxu.to(dev), gb.edge_mask.to(dev)
         n = gb.num_nodes_padded
@@ -314,85 +471,23 @@ def extremes_phase(torch, np):
             fail(f"segment_extremes forward {name} is not exact")
         if not e_grad <= F32_TOL or pad_grad != 0:
             fail(f"segment_extremes backward {name} disagrees")
-        if name == "hiv_main_f70":
-            err_fwd, err_bwd = e_plain, e_grad
+        errs[name] = (e_plain, e_grad)
 
-    # timing at the main path's shape
-    layout, mask = hiv.mxu.to(dev), hiv.edge_mask.to(dev)
-    n, f = hiv.num_nodes_padded, f_main
-    x = torch.from_numpy(ge_main).to(dev)
-    e_pad = x.shape[0]
-    n_chunks = e_pad // 128
-    n_real = int(mask.sum().item())
-    dmx = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(dev)
-    dmn = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(dev)
-    mx, mn = extremes.segment_extremes_fwd(x, layout, mask, n)
-    fwd_ms, fwd_call = timed(
-        torch, lambda i: extremes.segment_extremes_fwd(x, layout, mask, n))
-    bwd_ms, bwd_call = timed(torch, lambda i: extremes.segment_extremes_bwd(
-        x, mx, mn, dmx, dmn, layout, mask))
-    pfwd_ms, pfwd_call = timed(
-        torch, lambda i: extremes.segment_extremes_plain(x, layout, mask, n))
-    xp = x.clone().requires_grad_()
-    pout = extremes.segment_extremes_plain(xp, layout, mask, n)
-    pbwd_ms, pbwd_call = timed(torch, lambda i: torch.autograd.grad(
-        pout, xp, (dmx, dmn), retain_graph=True))
-    # the library call: scatter_reduce amax and amin into a zeroed buffer
-    # whose extra row n takes the pad edges (include_self=False leaves rows
-    # without an edge at 0).  Checked once against the kernel.
-    dst = (layout.edge_chunk_dst.long().repeat_interleave(128) * 128
-           + layout.local_dst.long())
-    idx = torch.where(mask, dst, n)[:, None].expand(-1, f).contiguous()
-    buf = torch.zeros((n + 1, f), device=dev)
-
-    def library(v):
-        return (buf.scatter_reduce(0, idx, v, "amax", include_self=False),
-                buf.scatter_reduce(0, idx, v, "amin", include_self=False))
-
-    lmx, lmn = library(x)
-    if not (torch.equal(lmx[:n], mx) and torch.equal(lmn[:n], mn)):
-        fail("the library call does not compute segment_extremes")
-    lib_fwd_ms, lib_fwd_call = timed(torch, lambda i: library(x))
-    xl = x.clone().requires_grad_()
-    lout = library(xl)
-    zero_row = torch.zeros((1, f), device=dev)
-    lct = (torch.cat([dmx, zero_row]), torch.cat([dmn, zero_row]))
-    lib_bwd_ms, lib_bwd_call = timed(torch, lambda i: torch.autograd.grad(
-        lout, xl, lct, retain_graph=True))
-    # bytes each must move: the real edges' values, the layout's index and
-    # mask arrays, and the outputs (forward: max and min [N, F]; backward:
-    # reads max, min and both cotangents, writes d_ge [E, F] whole)
-    index_bytes = e_pad * 4 + e_pad + n_chunks * 4
-    fwd_bytes = n_real * f * 4 + index_bytes + 2 * n * f * 4
-    bwd_bytes = n_real * f * 4 + index_bytes + 4 * n * f * 4 + e_pad * f * 4
-    fwd_bound, fwd_by = bound(fwd_bytes, 2 * n_real * f)
-    bwd_bound, bwd_by = bound(bwd_bytes, 6 * n_real * f + 2 * n * f)
-    shape = extremes.launch_shape(f, n_chunks, layout.n_node_blocks)
-    print("kernel segment_extremes launch: " + "; ".join(
-        f"{k} grid {s['grid'][0]}x{s['grid'][1]} = "
-        f"{s['grid'][0] * s['grid'][1]} blocks of 256 threads, "
-        f"{s['smem_bytes']} dynamic shared bytes" for k, s in shape.items()))
-    print(f"kernel segment_extremes timing: E={e_pad} ({n_real} real) "
-          f"C={n_chunks} N={n} F={f}; forward {fwd_bytes} bytes: device ms "
-          f"kernel {fwd_ms:.5f}, plain {pfwd_ms:.5f}, library "
-          f"{lib_fwd_ms:.5f}, bound {fwd_bound:.5f}; per call incl. host: "
-          f"kernel {fwd_call:.5f}, plain {pfwd_call:.5f}, library "
-          f"{lib_fwd_call:.5f}")
-    print(f"kernel segment_extremes timing: backward {bwd_bytes} bytes: "
-          f"device ms kernel {bwd_ms:.5f}, plain (autograd) {pbwd_ms:.5f}, "
-          f"library (autograd) {lib_bwd_ms:.5f}, bound {bwd_bound:.5f}; per "
-          f"call incl. host: kernel {bwd_call:.5f}, plain {pbwd_call:.5f}, "
-          f"library {lib_bwd_call:.5f}")
     common = {"route": "cuda", "source": "dgn_tpu_torch/ops/csrc/extremes.cu",
               "launches": None}
-    return [dict(common, name="segment_extremes_fwd",
-                 replaces="dgn_tpu/ops/extremes.py:200", max_abs_err=err_fwd,
-                 ms=fwd_ms, plain_ms=pfwd_ms, bound_ms=fwd_bound,
-                 bound_by=fwd_by, library_ms=lib_fwd_ms),
-            dict(common, name="segment_extremes_bwd",
-                 replaces="dgn_tpu/ops/extremes.py:173", max_abs_err=err_bwd,
-                 ms=bwd_ms, plain_ms=pbwd_ms, bound_ms=bwd_bound,
-                 bound_by=bwd_by, library_ms=lib_bwd_ms)], hiv
+    out = []
+    for path, suffix, case, times in (
+            ("hiv", "", "hiv_main_f70",
+             time_extremes(torch, np, hiv, ge_hiv, "hiv")),
+            ("pcba", "@pcba", "pcba_micro_f70",
+             time_extremes(torch, np, pcba, ge_pcba, "pcba micro"))):
+        for i, (name, replaces) in enumerate(
+                (("segment_extremes_fwd", "dgn_tpu/ops/extremes.py:200"),
+                 ("segment_extremes_bwd", "dgn_tpu/ops/extremes.py:173"))):
+            out.append(dict(common, name=name + suffix, replaces=replaces,
+                            path=path, max_abs_err=errs[case][i],
+                            **times[i]))
+    return out
 
 
 def launch_counters():
@@ -402,17 +497,26 @@ def launch_counters():
             "segment_extremes_bwd": extremes.segment_extremes_bwd}
 
 
-def drive_path(torch, config: Path, n_layers_extremes: int,
-               epochs: int = 2, size: int = 1024, bs: int = 128):
-    """Train `config` through the user's entry point with every launch
-    counter at 0 just before; returns (report, launches).  Fails unless the
-    launches are what the path must make: one adjacency build per forward
-    pass (every train step, every pass of the shuffled train loader in the
-    final eval, and each cached val/test batch once, as the trainer keeps
-    their edge contexts), the extremes forward once per max/min layer per
-    forward pass, and their backward once per such layer per train step."""
+def packed_units(loader) -> int:
+    """GraphBatches one pass of the loader yields: one per batch, or one per
+    non-empty micro-batch of each batch."""
+    n, bs, k = len(loader.graphs), loader.batch_size, loader.micro_batches
+    return sum(min(k, bs, n - i) for i in range(0, n, bs))
+
+
+def drive_path(torch, key: str, n_layers_extremes: int, size: int):
+    """Train the path's config through the user's entry point with every launch
+    counter at 0 just before; fails unless the launches are what the path
+    must make.  Per packed (micro-)batch: one adjacency build per forward
+    pass (each train step, each of the shuffled train loader's in the final
+    eval, and each cached val/test batch once, as the trainer keeps their
+    edge contexts), the extremes forward once per max/min layer per forward
+    pass, and their backward once per such layer per train step.  The
+    counts of packed batches come from the path's loaders as run.prepare
+    builds them (`prepared`).  Returns (report, launches)."""
     from dgn_tpu_torch import run
-    argv = ["--config", str(config), "--epochs", str(epochs),
+    config = CONFIGS / next(p[1] for p in PATHS if p[0] == key)
+    argv = ["--config", str(config), "--epochs", str(EPOCHS),
             "--synthetic_size", str(size), "--device", DEVICE]
     counters = launch_counters()
     for c in counters.values():
@@ -422,28 +526,32 @@ def drive_path(torch, config: Path, n_layers_extremes: int,
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {name: c.launches for name, c in counters.items()}
-    train_b = math.ceil(size / bs)
-    eval_b = math.ceil(max(size // 10, 16) / bs)     # val and test each
-    steps = epochs * train_b
-    forwards = steps + epochs * 2 * eval_b + train_b + 2 * eval_b
-    expected = {"build_pair_adjacency": steps + train_b + 2 * eval_b,
+    units = {split: packed_units(ld)
+             for split, ld in prepared(key)[4].items()}
+    steps = EPOCHS * units["train"]
+    evals = units["val"] + units["test"]
+    forwards = steps + EPOCHS * evals + units["train"] + evals
+    expected = {"build_pair_adjacency": steps + units["train"] + evals,
                 "segment_extremes_fwd": n_layers_extremes * forwards,
                 "segment_extremes_bwd": n_layers_extremes * steps}
     print(f"path {config.name}: dgn_tpu_torch.run {' '.join(argv)} -> "
-          f"{wall:.1f}s, final test {report['final']['test']}, launches "
-          f"{launches} (expected {expected})")
+          f"{wall:.1f}s, final test {report['final']['test']}, packed "
+          f"batches per pass {units}, launches {launches} (expected "
+          f"{expected})")
     if launches != expected:
         fail(f"{config.name}: kernel launches {launches} are not the "
              f"expected {expected}")
     return report, launches
 
 
-def step_profile(torch, trainer, batches, label: str, per_step: dict):
+def step_profile(torch, trainer, batches, label: str, per_micro: dict):
     """Step time over steady steps, then device activity in a profiled
-    window; checks the launches each step makes."""
+    window; checks the launches each step makes (per_micro times the
+    step's micro-batches)."""
     from torch.profiler import ProfilerActivity, profile
     counters = launch_counters()
     before = {k: c.launches for k, c in counters.items()}
+    micros = sum(len(gb) if isinstance(gb, list) else 1 for gb in batches)
     times = []
     for gb in batches:
         torch.cuda.synchronize()
@@ -453,9 +561,10 @@ def step_profile(torch, trainer, batches, label: str, per_step: dict):
         times.append((time.perf_counter() - t) * 1e3)
         if not math.isfinite(float(loss)):
             fail(f"{label}: non-finite training loss")
-    for name, n in per_step.items():
-        if counters[name].launches - before[name] != n * len(batches):
-            fail(f"{label}: train steps did not launch {name} {n} times each")
+    for name, n in per_micro.items():
+        if counters[name].launches - before[name] != n * micros:
+            fail(f"{label}: train steps did not launch {name} {n} times per "
+                 "micro-batch")
     steady = times[3:]
     med = statistics.median(steady)
     print(f"train step ({label}): median {med:.3f} ms over {len(steady)} "
@@ -479,19 +588,27 @@ def step_profile(torch, trainer, batches, label: str, per_step: dict):
         print(f"  {t_ms:.4f} ms/step  {name[:100]}")
 
 
-def cpu_vs_card(torch, factory, cfg, params, batch, task: str):
-    """One train step from identical weights and batch on the CPU (plain
-    versions) and on the card (kernels)."""
+def cpu_vs_card(torch, task, cfg, meta, params, batch):
+    """One train step from identical weights and batch (or list of
+    micro-batches) on the CPU (plain versions) and on the card (kernels);
+    scores compare on real graphs, or real nodes for SBM."""
+    from dgn_tpu_torch import run
     from dgn_tpu_torch.train.trainer import Trainer
-    model_cpu, loss_cpu = factory(cfg, torch.Generator().manual_seed(41))
+    model_cpu, loss_cpu = run.build_model(
+        task, cfg, meta, torch.Generator().manual_seed(41))
     model_gpu = copy.deepcopy(model_cpu)
     t_cpu = Trainer(model_cpu, loss_cpu, params, task=task, device="cpu")
     t_gpu = Trainer(model_gpu, loss_cpu, params, task=task, device=DEVICE)
     l_cpu, s_cpu = t_cpu.train_step(batch)
     l_gpu, s_gpu = t_gpu.train_step(batch)
-    gm = batch.graph_mask
-    s_cpu, s_gpu = s_cpu[gm], s_gpu.cpu()[gm]
-    d_scores = (s_cpu - s_gpu).abs().max().item()
+    micros = batch if isinstance(batch, list) else [batch]
+    if not isinstance(batch, list):
+        s_cpu, s_gpu = [s_cpu], [s_gpu]
+    pairs = []
+    for gb, a, b in zip(micros, s_cpu, s_gpu):
+        m = gb.node_mask if task == "sbm" else gb.graph_mask
+        pairs.append((a[m], b.cpu()[m]))
+    d_scores = max((a - b).abs().max().item() for a, b in pairs)
     d_loss = abs(float(l_cpu) - float(l_gpu))
     d_param = {name: (a.detach() - b.detach().cpu()).abs().max().item()
                for (name, a), b in zip(model_cpu.named_parameters(),
@@ -499,61 +616,60 @@ def cpu_vs_card(torch, factory, cfg, params, batch, task: str):
     worst = max(d_param, key=d_param.get)
     # a posttrans bias that feeds straight into batch norm (no graph norm)
     # has a gradient that is zero up to rounding; Adam's first step turns
-    # that noise into a step of up to lr either way, on each side
+    # that noise into a step of up to lr either way, on each side.  So do
+    # weights whose gradient is zero up to rounding, hence the gradients'
+    # own difference and the count of entries that moved apart
     rest = max(v for k, v in d_param.items()
                if not k.endswith("posttrans.bias"))
-    print(f"cpu vs cuda, one {task} step: |loss diff| {d_loss:.3g} "
-          f"(loss {float(l_cpu):.6f}), max |score diff| {d_scores:.3g}, "
-          f"max |param diff after Adam| {d_param[worst]:.3g} ({worst}; "
-          f"{rest:.3g} without the posttrans biases)")
-    if not (torch.allclose(s_gpu, s_cpu, rtol=STEP_RTOL, atol=STEP_ATOL)
+    grads = [(a.grad, b.grad.cpu()) for a, b in zip(model_cpu.parameters(),
+                                                    model_gpu.parameters())]
+    d_grad = max((a - b).abs().max().item() for a, b in grads)
+    g_max = max(a.abs().max().item() for a, _ in grads)
+    lr = params.init_lr
+    apart = sum(int(((a.detach() - b.detach().cpu()).abs() > 0.1 * lr).sum())
+                for a, b in zip(model_cpu.parameters(),
+                                model_gpu.parameters()))
+    n_param = sum(p.numel() for p in model_cpu.parameters())
+    print(f"cpu vs cuda, one {task} step over {len(micros)} packed "
+          f"batch(es): |loss diff| {d_loss:.3g} (loss {float(l_cpu):.6f}), "
+          f"max |score diff| {d_scores:.3g}, max |grad diff| {d_grad:.3g} "
+          f"(max |grad| {g_max:.3g}), max |param diff after Adam| "
+          f"{d_param[worst]:.3g} ({worst}; {rest:.3g} without the posttrans "
+          f"biases; {apart} of {n_param} entries apart by more than lr/10)")
+    if not (all(torch.allclose(b, a, rtol=STEP_RTOL, atol=STEP_ATOL)
+                for a, b in pairs)
             and math.isclose(float(l_gpu), float(l_cpu), rel_tol=STEP_RTOL)):
         fail(f"the card's {task} step disagrees with the CPU step")
 
 
-def training_phase(torch, zinc_batch, hiv_batch):
-    """Both paths through the entry point, each path's step, and each
-    path's CPU-vs-card step; returns {path: launches}."""
-    from dgn_tpu_torch import run
-    from dgn_tpu_torch.config import load_config
-    from dgn_tpu_torch.models import hiv_model, zinc_model
-
-    size = 1024
+def training_phase(torch):
+    """Every path of PATHS through the entry point, each path's step, and
+    each path's CPU-vs-card step; returns {path: launches}."""
     out = {}
-    # ---- ZINC: complex layers, no max/min
-    report, out["zinc"] = drive_path(torch, CONFIG, n_layers_extremes=0)
-    maes = [report["final"][s]["mae"] for s in ("train", "val", "test")]
-    if not all(math.isfinite(m) for m in maes):
-        fail(f"non-finite MAE in the ZINC report: {maes}")
-    cfg = load_config(str(CONFIG), {"synthetic_size": size})
-    _, model, _, trainer, loaders = run.prepare(cfg, DEVICE)
-    step_profile(torch, trainer,
-                 [gb for _ in range(3) for gb in loaders["train"]],
-                 f"ZINC, hidden 45, L=4, batch 128, n_pad="
-                 f"{loaders['train'].n_pad} e_pad={loaders['train'].e_pad} "
-                 f"pairs={loaders['train'].pair_pad}",
-                 {"build_pair_adjacency": 1})
-    cpu_vs_card(torch, zinc_model, model.cfg, cfg.params, zinc_batch, "zinc")
-
-    # ---- HIV: simple layers with max/min, dropout 0.3
-    report, out["hiv"] = drive_path(torch, HIV_CONFIG,
-                                    n_layers_extremes=4)
-    final = [report["final"][s][k] for s in ("train", "val", "test")
-             for k in ("rocauc", "loss")]
-    if not all(math.isfinite(m) for m in final):
-        fail(f"non-finite ROC-AUC or loss in the HIV report: {final}")
-    cfg = load_config(str(HIV_CONFIG), {"synthetic_size": size})
-    _, model, _, trainer, loaders = run.prepare(cfg, DEVICE)
-    step_profile(torch, trainer,
-                 [gb for _ in range(3) for gb in loaders["train"]],
-                 f"HIV, hidden 70, L=4, batch 128, dropout 0.3, n_pad="
-                 f"{loaders['train'].n_pad} e_pad={loaders['train'].e_pad} "
-                 f"pairs={loaders['train'].pair_pad}",
-                 {"build_pair_adjacency": 1, "segment_extremes_fwd": 4,
-                  "segment_extremes_bwd": 4})
-    # dropout 0: the CPU and CUDA generators draw different masks
-    cpu_vs_card(torch, hiv_model, dataclasses.replace(model.cfg, dropout=0.0),
-                cfg.params, hiv_batch, "hiv")
+    for key, _, n_ext, size in PATHS:
+        report, out[key] = drive_path(torch, key, n_ext, size)
+        ds, model, _, trainer, loaders, cfg = _PREPARED.pop(key)
+        final = report["final"]
+        if not all(math.isfinite(v) for split in ("train", "val", "test")
+                   for v in final[split].values()):
+            fail(f"a non-finite value in the {key} report: {final}")
+        train = loaders["train"]
+        batches = list(train)
+        net, p = model.cfg, cfg.params
+        step_profile(
+            torch, trainer, batches * math.ceil(MIN_STEPS / len(batches)),
+            f"{key}, {net.type_net} hidden {net.hidden_dim} L={net.L}, batch "
+            f"{p.batch_size} in {train.micro_batches} micro-batch(es), "
+            f"dropout {net.dropout}, n_pad={train.n_pad} e_pad={train.e_pad} "
+            f"pairs={train.pair_pad}",
+            {"build_pair_adjacency": 1, "segment_extremes_fwd": n_ext,
+             "segment_extremes_bwd": n_ext})
+        # dropout 0: the CPU and CUDA generators draw different masks
+        cpu_vs_card(torch, cfg.task, dataclasses.replace(model.cfg,
+                                                         dropout=0.0),
+                    ds.meta, p, batches[0])
+        del ds, model, trainer, loaders, batches
+        torch.cuda.empty_cache()
     return out
 
 
@@ -564,7 +680,8 @@ def main() -> None:
                         help="kernels: phases 1-3 only; the kernels line "
                         "then has no launches and no device line follows")
     args = parser.parse_args()
-    if not (REPO / "dgn_tpu_torch").is_dir() or not CONFIG.is_file():
+    if not (REPO / "dgn_tpu_torch").is_dir() or not all(
+            (CONFIGS / name).is_file() for _, name, _, _ in PATHS):
         fail("run chip_smoke.py from the root of a dgn_tpu checkout")
     import numpy as np
     import torch
@@ -590,22 +707,24 @@ def main() -> None:
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas {kernel}: {line.strip()}")
 
-    adj, zinc_batch = adjacency_phase(torch, np)
-    ext, hiv_batch = extremes_phase(torch, np)
-    kernels = [adj] + ext
+    t = time.time()
+    kernels = adjacency_phase(torch, np) + extremes_phase(torch, np)
+    print(f"kernel phase: {time.time() - t:.1f}s")
     if args.phases == "kernels":
         print(json.dumps({"kernels": kernels}))
         print(f"card: {card_line()}")
         return
-    launches = training_phase(torch, zinc_batch, hiv_batch)
-    # `launches` is each kernel's count on this slice's path (HIV); the
-    # counts of every path stand beside it
+    launches = training_phase(torch)
+    # `launches` is the kernel's count on the path whose shape the entry
+    # timed ("path"); the counts of every path stand beside it
     for kern in kernels:
-        kern["launches"] = launches["hiv"][kern["name"]]
-        kern["launches_by_path"] = {p: c[kern["name"]]
-                                    for p, c in launches.items()}
-        if kern["launches"] <= 0:
-            fail(f"kernel {kern['name']} was not launched on the HIV path")
+        counter = kern["name"].split("@")[0]
+        kern["launches"] = launches[kern["path"]][counter]
+        kern["launches_by_path"] = {p: c[counter] for p, c in launches.items()}
+        for path, _, n_ext, _ in PATHS:
+            runs = counter == "build_pair_adjacency" or n_ext > 0
+            if runs and kern["launches_by_path"][path] <= 0:
+                fail(f"kernel {counter} was not launched on the {path} path")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """dgn_tpu_torch: Directional Graph Networks in PyTorch for NVIDIA Hopper.
 
 The port of `dgn_tpu` (JAX/Flax/Pallas) that runs on one H100.  It keeps the
-reference package's module layout and names; the TPU kernels on its paths
-(ZINC and HIV) are hand-written CUDA kernels: the adjacency-block build
-(`ops/csrc/adjacency.cu`) and the per-destination max/min with its backward
-(`ops/csrc/extremes.cu`).  Entry point: `python -m dgn_tpu_torch.run`.
+reference package's module layout and names, and trains the five benchmark
+configs (ZINC, SBM PATTERN, CIFAR10 superpixels, HIV, PCBA); the TPU
+kernels on their paths are hand-written CUDA kernels: the adjacency-block
+build (`ops/csrc/adjacency.cu`) and the per-destination max/min with its
+backward (`ops/csrc/extremes.cu`).  Entry point: `python -m dgn_tpu_torch.run`.
 Importing the package builds nothing and touches no device.
 """

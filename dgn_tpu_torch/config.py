@@ -30,7 +30,7 @@ class DataParams:
     layout: str = "auto"          # auto = mxu, the block layout
     n_buckets: int = 1
     geometry: str = "typical"     # pad sizing of the shuffled train loader
-    micro_batches: Any = "auto"   # auto = ceil(batch_size / 1024); only 1 runs
+    micro_batches: Any = "auto"   # auto = ceil(batch_size / 1024)
 
 
 @dataclasses.dataclass
@@ -47,6 +47,10 @@ class ExperimentConfig:
         d = self.dataset.upper()
         if d in ("ZINC", "ZINC-FULL"):
             return "zinc"
+        if d.startswith("SBM"):
+            return "sbm"
+        if d in ("MNIST", "CIFAR10"):
+            return "superpixels"
         if d == "HIV":
             return "hiv"
         if d == "PCBA":
@@ -164,6 +168,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--data_dir", type=str, default=None)
     ap.add_argument("--pos_enc_dim", type=int, default=None)
     ap.add_argument("--lap_norm", type=str, default=None)
+    ap.add_argument("--coord_eig", type=_bool, default=None)
+    ap.add_argument("--proportion", type=float, default=None)
     ap.add_argument("--synthetic_size", type=int, default=None)
     ap.add_argument("--layout", type=str, default=None,
                     choices=["auto", "flat", "mxu"])

@@ -1,10 +1,13 @@
-"""Synthetic molecules (counterpart of `dgn_tpu/data/synthetic.py`:
-`synthetic_zinc` and `synthetic_ogb_mol`).
+"""Synthetic datasets (counterpart of `dgn_tpu/data/synthetic.py`:
+`synthetic_zinc`, `synthetic_sbm`, `synthetic_superpixels` and
+`synthetic_ogb_mol`).
 
 The same generators and numpy seed streams as the reference package, so both
-produce identical graphs: valence-bounded sparse structure, integer atom and
-bond features, and learnable structure-dependent targets (a scalar for ZINC,
-binary labels for ogbg-molhiv/molpcba).
+produce identical graphs with learnable structure-dependent targets:
+valence-bounded molecules with integer atom and bond features (a scalar for
+ZINC, binary labels for ogbg-molhiv/molpcba), PATTERN-like SBM graphs with
+node labels, and superpixel-like kNN graphs with float node features and a
+class label.
 """
 from __future__ import annotations
 
@@ -65,6 +68,96 @@ def synthetic_zinc(num_graphs: int, seed: int = 0,
         out.append(GraphData(num_nodes=n, src=src, dst=dst, node_feat=atom,
                              eig=eig, edge_feat=bond,
                              label=np.array([target], np.float32)))
+    return out
+
+
+def synthetic_sbm(num_graphs: int, seed: int = 0, n_classes: int = 2,
+                  nodes: int = 80, p_in: float = 0.2, p_out: float = 0.05,
+                  k_eig: int = 5, norm: str = "none",
+                  n_node_types: int = 3) -> List[GraphData]:
+    """PATTERN-like SBM node classification: three background blocks plus
+    planted denser pattern subgraphs; a node's label is the pattern it
+    belongs to (0 = background).  Node features are uninformative integer
+    types, so the signal is purely structural (labelling nodes by community
+    id instead would be unlearnable by symmetry)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(num_graphs):
+        n = int(rng.integers(nodes - 20, nodes + 20))
+        comm = rng.integers(0, 3, size=(n,))          # background blocks
+        label = np.zeros(n, np.int32)
+        psize = max(int(0.15 * n), 5)
+        perm = rng.permutation(n)
+        for c in range(1, n_classes):
+            label[perm[(c - 1) * psize: c * psize]] = c
+        same_bg = comm[:, None] == comm[None, :]
+        prob = np.where(same_bg, p_in, p_out)
+        for c in range(1, n_classes):
+            in_pat = label == c
+            pp = min(3.0 * p_in + 0.1 * (c - 1), 0.9)
+            prob = np.where(in_pat[:, None] & in_pat[None, :], pp, prob)
+        draw = rng.random((n, n))
+        upper = np.triu(draw < prob, k=1)
+        us, vs = np.nonzero(upper)
+        if len(us) == 0:
+            us, vs = np.array([0]), np.array([1 % n])
+        src = np.concatenate([us, vs]).astype(np.int32)
+        dst = np.concatenate([vs, us]).astype(np.int32)
+        feat = rng.integers(0, n_node_types, size=(n,)).astype(np.int32)
+        eig = spectral.graph_eig(n, src, dst, k_eig, norm)
+        out.append(GraphData(num_nodes=n, src=src, dst=dst, node_feat=feat,
+                             eig=eig, node_labels=label,
+                             label=np.array([0.0], np.float32)))
+    return out
+
+
+def synthetic_superpixels(num_graphs: int, seed: int = 0, n_classes: int = 10,
+                          nodes: int = 75, knn: int = 8, feat_dim: int = 5,
+                          k_eig: int = 7, coord_eig: bool = False
+                          ) -> List[GraphData]:
+    """Superpixel-like graphs: directed kNN edges (each node to its `knn`
+    nearest) over 2D coordinates, gaussian edge weights, node features
+    [feat_dim - 2 noise columns, x, y].
+
+    Class c = style * 5 + (clusters - 1) draws the coordinates from a
+    mixture of (c mod 5) + 1 clusters, each a 2D gaussian blob (c < 5) or a
+    thin ring (c >= 5), so every class pair differs in what the kNN graph
+    expresses.  The eig field is the sym-normalised Laplacian's (the kNN
+    graph is directed, so the Laplacian is not symmetric), or [0, x, y]
+    with coord_eig."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(num_graphs):
+        n = int(rng.integers(nodes - 10, nodes + 10))
+        label = int(rng.integers(0, n_classes))
+        n_clusters = (label % 5) + 1
+        ring = label >= 5
+        centers = rng.random((n_clusters, 2))
+        which = rng.integers(0, n_clusters, size=n)
+        if ring:
+            ang = rng.uniform(0.0, 2.0 * np.pi, size=n)
+            rad = 0.13 + rng.normal(scale=0.012, size=n)
+            off = rad[:, None] * np.stack([np.cos(ang), np.sin(ang)], axis=1)
+        else:
+            off = rng.normal(scale=0.05, size=(n, 2))
+        xy = (centers[which] + off).astype(np.float32)
+        d2 = ((xy[:, None, :] - xy[None, :, :]) ** 2).sum(-1)
+        np.fill_diagonal(d2, np.inf)
+        k = min(knn, n - 1)
+        nbr = np.argsort(d2, axis=1)[:, :k]
+        src = np.repeat(np.arange(n, dtype=np.int32), k)
+        dst = nbr.reshape(-1).astype(np.int32)
+        sigma = np.sqrt(d2[d2 != np.inf]).mean() + 1e-8
+        w = np.exp(-np.sqrt(d2[src, dst]) / sigma).astype(np.float32)
+        feat = np.concatenate(
+            [rng.normal(size=(n, feat_dim - 2)).astype(np.float32), xy], axis=1)
+        if coord_eig:
+            eig = np.concatenate([np.zeros((n, 1), np.float32), xy], axis=1)
+        else:
+            eig = spectral.graph_eig(n, src, dst, k_eig, "sym")
+        out.append(GraphData(num_nodes=n, src=src, dst=dst, node_feat=feat,
+                             eig=eig, edge_feat=w[:, None],
+                             label=np.array(label, np.int32)))
     return out
 
 

@@ -1,8 +1,9 @@
 """Task model factories (counterpart of `dgn_tpu/models/__init__.py`).
 
 Each factory pins the per-task DGNConfig defaults and pairs the net with its
-masked loss: ZINC (L1), ogbg-molhiv (BCE with logits) and ogbg-molpcba
-(NaN-masked 128-task BCE).  SBM and superpixels are not ported yet."""
+masked loss: ZINC (L1), SBM PATTERN/CLUSTER (class-weighted CE per node),
+MNIST/CIFAR10 superpixels (CE), ogbg-molhiv (BCE with logits) and
+ogbg-molpcba (NaN-masked 128-task BCE)."""
 from __future__ import annotations
 
 import dataclasses
@@ -28,6 +29,36 @@ def zinc_model(cfg: DGNConfig, generator: torch.Generator
         return losses.l1_loss(scores, gb.labels, gb.graph_mask)
 
     return DGNModel(cfg, generator), loss
+
+
+def sbm_model(cfg: DGNConfig, n_classes: int, generator: torch.Generator
+              ) -> Tuple[DGNModel, LossFn]:
+    """SBM PATTERN/CLUSTER node classification (reference
+    SBMs_node_classification/dgn_net.py): atom-type Embedding input, a
+    per-node head, class-weighted CE."""
+    cfg = dataclasses.replace(cfg, node_encoder="embedding", readout="node",
+                              n_out=n_classes)
+
+    def loss(logits, gb: GraphBatch):
+        return losses.weighted_cross_entropy_sbm(
+            logits, gb.node_labels, gb.node_mask, n_classes)
+
+    return DGNModel(cfg, generator), loss
+
+
+def superpixels_model(cfg: DGNConfig, n_classes: int, in_dim: int,
+                      generator: torch.Generator) -> Tuple[DGNModel, LossFn]:
+    """MNIST/CIFAR10 superpixels (reference
+    superpixels_graph_classification/dgn_net.py): a Linear over the in_dim
+    float node features, the config's graph readout, CE."""
+    cfg = dataclasses.replace(cfg, node_encoder="linear",
+                              edge_encoder="linear", n_out=n_classes)
+
+    def loss(logits, gb: GraphBatch):
+        labels = gb.labels.squeeze(-1) if gb.labels.ndim > 1 else gb.labels
+        return losses.cross_entropy(logits, labels, gb.graph_mask)
+
+    return DGNModel(cfg, generator, in_dim=in_dim), loss
 
 
 def hiv_model(cfg: DGNConfig, generator: torch.Generator
@@ -57,7 +88,9 @@ def pcba_model(cfg: DGNConfig, generator: torch.Generator
     return DGNModel(cfg, generator), loss
 
 
-MODEL_FACTORIES = {"zinc": zinc_model, "hiv": hiv_model, "pcba": pcba_model}
+MODEL_FACTORIES = {"zinc": zinc_model, "sbm": sbm_model,
+                   "superpixels": superpixels_model, "hiv": hiv_model,
+                   "pcba": pcba_model}
 
-__all__ = ["DGNConfig", "DGNModel", "zinc_model", "hiv_model", "pcba_model",
-           "MODEL_FACTORIES"]
+__all__ = ["DGNConfig", "DGNModel", "zinc_model", "sbm_model",
+           "superpixels_model", "hiv_model", "pcba_model", "MODEL_FACTORIES"]

@@ -1,17 +1,19 @@
 """The DGN task network (counterpart of `dgn_tpu/models/dgn_net.py`).
 
-Structure: node encoder (atom-type Embedding for ZINC, the OGB AtomEncoder
-for HIV/PCBA) -> L simple or complex DGN layers ((L-1) at hidden_dim, the
-last at out_dim; reference molecules dgn_net.py:40-50), each ending in
-dropout -> mean readout -> MLPReadout.  The batch-constant EdgeContext (eig
-deltas, weight families, adjacency blocks) is built once per forward pass,
-or reused when the batch arrives with one attached (the trainer's eval
-cache).
+Structure: node encoder (atom-type Embedding for ZINC and SBM, the OGB
+AtomEncoder for HIV/PCBA, a Linear over float features for superpixels) ->
+L simple or complex DGN layers ((L-1) at hidden_dim, the last at out_dim;
+reference molecules dgn_net.py:40-50), each ending in dropout -> graph
+readout (mean, sum, max, directional, directional_abs) -> MLPReadout per
+graph, or MLPReadout per node (readout "node", SBM).  The batch-constant EdgeContext (eig deltas, weight families,
+adjacency blocks) is built once per forward pass, or reused when the batch
+arrives with one attached (the trainer's eval cache).
 
 `DGNConfig` keeps the reference's full field set so the same JSON configs
 load; `DGNModel` raises NotImplementedError for any value the port does not
 cover yet (towers, the virtual node, edge features, input dropout, deeper
-pretrans/posttrans, bf16) instead of silently running something else.
+pretrans/posttrans, bf16, readout "none") instead of
+silently running something else.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from torch import nn
 
 from ..graph import GraphBatch
 from ..layers.dgn import make_dgn_layer
-from ..nn import Embedding, MLPReadout
+from ..nn import Embedding, Linear, MLPReadout
 from ..ops import aggregators as agg_ops
 from ..ops import scalers as scaler_ops
 from .encoders import AtomEncoder
@@ -78,9 +80,8 @@ def check_ported(cfg: DGNConfig) -> None:
     if cfg.type_net not in ("simple", "complex"):
         raise NotImplementedError(f"type_net {cfg.type_net!r} is not ported "
                                   "yet (simple and complex are)")
-    if cfg.node_encoder not in ("embedding", "atom"):
-        raise NotImplementedError(f"node_encoder {cfg.node_encoder!r} is not "
-                                  "ported yet (embedding and atom are)")
+    if cfg.node_encoder not in ("embedding", "atom", "linear"):
+        raise ValueError(f"unknown node_encoder {cfg.node_encoder!r}")
     wanted = dict(edge_feat=False, pretrans_layers=1, posttrans_layers=1,
                   pos_enc_dim=0, in_feat_dropout=0.0, bn_axis=None,
                   compute_dtype=None, decompose=True)
@@ -91,8 +92,9 @@ def check_ported(cfg: DGNConfig) -> None:
                 f"(the port runs {name}={value!r})")
     if cfg.virtual_node and cfg.virtual_node.lower() != "none":
         raise NotImplementedError("the virtual node is not ported yet")
-    if cfg.readout not in ("mean", "default"):
-        raise NotImplementedError(f"readout {cfg.readout!r} is not ported yet")
+    if cfg.readout == "none":
+        raise NotImplementedError("readout 'none' (raw node embeddings) is "
+                                  "not ported yet")
     agg_ops.check_ported(cfg.agg_names())
 
 
@@ -105,18 +107,26 @@ def edge_context_for(gb: GraphBatch, cfg: DGNConfig) -> agg_ops.EdgeContext:
 
 
 class DGNModel(nn.Module):
-    """Node encoder -> L x DGN layer -> mean readout -> MLPReadout.
+    """Node encoder -> L x DGN layer -> graph readout -> MLPReadout, or
+    MLPReadout per node.
 
     Children carry the reference's parameter names (embedding_h, layer_i,
-    MLP_layer) so convert.load_jax_params maps one tree onto the other."""
+    MLP_layer) so convert.load_jax_params maps one tree onto the other.
+    in_dim is the float feature width the `linear` node encoder takes (flax
+    infers it from the first batch; here it comes from the dataset)."""
 
-    def __init__(self, cfg: DGNConfig, generator: torch.Generator):
+    def __init__(self, cfg: DGNConfig, generator: torch.Generator,
+                 in_dim: Optional[int] = None):
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
         avg_d = cfg.avg_d or {"log": 1.0, "lin": 1.0}
         if cfg.node_encoder == "atom":
             self.embedding_h = AtomEncoder(cfg.hidden_dim, generator)
+        elif cfg.node_encoder == "linear":
+            if in_dim is None:
+                raise ValueError("the linear node encoder needs in_dim")
+            self.embedding_h = Linear(in_dim, cfg.hidden_dim, generator)
         else:
             self.embedding_h = Embedding(cfg.num_node_types, cfg.hidden_dim,
                                          generator)
@@ -130,14 +140,20 @@ class DGNModel(nn.Module):
                 graph_norm=cfg.graph_norm, batch_norm=cfg.batch_norm,
                 residual=cfg.residual))
             in_dim = out_dim
-        self.MLP_layer = MLPReadout(in_dim, cfg.n_out, generator,
-                                    L=cfg.readout_L,
-                                    decreasing_dim=cfg.decreasing_dim)
+        # the per-node head keeps MLPReadout's default halving widths, as in
+        # the reference (dgn_net.py:205-206); the directional readouts
+        # concatenate two poolings
+        if cfg.readout in ("directional", "directional_abs"):
+            in_dim *= 2
+        self.MLP_layer = MLPReadout(
+            in_dim, cfg.n_out, generator, L=cfg.readout_L,
+            decreasing_dim=cfg.readout == "node" or cfg.decreasing_dim)
 
     def forward(self, gb: GraphBatch,
                 dropout_generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        """[G, n_out] scores.  Batch norm and dropout follow self.training;
+        """[G, n_out] scores ([N, n_out] per node for readout "node").
+        Batch norm and dropout follow self.training;
         dropout > 0 in training draws its masks from dropout_generator, a
         torch.Generator on the model's device."""
         if gb.edge_ctx is None:
@@ -145,4 +161,6 @@ class DGNModel(nn.Module):
         h = self.embedding_h(gb.node_feat)
         for i in range(self.cfg.L):
             h = getattr(self, f"layer_{i}")(gb, h, dropout_generator)
+        if self.cfg.readout == "node":
+            return self.MLP_layer(h)
         return self.MLP_layer(graph_readout(gb, h, self.cfg.readout))

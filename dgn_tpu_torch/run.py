@@ -1,13 +1,14 @@
 """Experiment entry point: `python -m dgn_tpu_torch.run --config ... [flags]`.
 
 Counterpart of `dgn_tpu/run.py` for what this package covers: the ZINC,
-HIV and PCBA tasks on the block layout, one device, one packed batch per
-step.  Pipeline: config (JSON + CLI overlay) -> dataset (synthetic when no
+SBM, superpixel, HIV and PCBA tasks on the block layout, one device.
+Pipeline: config (JSON + CLI overlay) -> dataset (synthetic when no
 data_dir) -> avg_d degree stats over train -> per-task derived config ->
 model -> Trainer (Adam + ReduceLROnPlateau, seeded) -> epoch loop with
 val/test eval, min-lr and max_time stops -> final report (MAE for ZINC,
-ROC-AUC for HIV, AP for PCBA).  The PCBA config's batch of 2048 needs
-micro-batching, which is not ported yet, so it raises.
+accuracy for SBM and superpixels, ROC-AUC for HIV, AP for PCBA).  A batch
+above 1024 graphs runs as micro-batches (`resolve_micro_batches`), as the
+PCBA config's 2048 does.
 
 The model runs on the GPU (`--device cuda`, the default) unless the caller
 asks for the CPU (`--device cpu`); without a GPU and without that request
@@ -49,23 +50,28 @@ def check_ported(cfg) -> None:
                                   "(the block layout, mxu, is)")
     if d.n_buckets > 1:
         raise NotImplementedError("n_buckets > 1 is not ported yet")
-    mb = resolve_micro_batches(d.micro_batches, cfg.params.batch_size)
-    if mb > 1:
-        raise NotImplementedError(
-            f"micro-batching is not ported yet: batch_size "
-            f"{cfg.params.batch_size} with micro_batches={d.micro_batches!r} "
-            f"resolves to {mb} micro-batches per step (ROADMAP A4); pass "
-            "--micro_batches 1 to run it as one batch")
     if cfg.net_params.compute_dtype is not None:
         raise NotImplementedError("compute_dtype (bfloat16) is not ported yet;"
                                   " the port runs float32")
+
+
+def build_model(task: str, np_cfg, meta, generator: torch.Generator):
+    """(model, loss) from the task's factory; SBM and superpixels take their
+    class count, and superpixels its float feature width, from the
+    dataset's meta."""
+    from .models import MODEL_FACTORIES
+    factory = MODEL_FACTORIES[task]
+    if task == "sbm":
+        return factory(np_cfg, meta["n_classes"], generator)
+    if task == "superpixels":
+        return factory(np_cfg, meta["n_classes"], meta["in_dim"], generator)
+    return factory(np_cfg, generator)
 
 
 def prepare(cfg, device="cuda"):
     """Dataset + model + trainer + loaders, shared by run() and tests."""
     from .data.datasets import load_dataset
     from .data.loader import BatchLoader
-    from .models import MODEL_FACTORIES
     from .ops.scalers import degree_stats
     from .train.trainer import Trainer
 
@@ -76,22 +82,31 @@ def prepare(cfg, device="cuda"):
                            for g in ds.train])
     # derived config from data (reference main_*.py:285-304)
     np_cfg = dataclasses.replace(cfg.net_params, avg_d=degree_stats(degs))
+    if task == "sbm":
+        np_cfg = dataclasses.replace(
+            np_cfg, num_node_types=ds.meta["num_node_types"])
     if task == "zinc":
         np_cfg = dataclasses.replace(
             np_cfg, num_node_types=ds.meta["num_atom_type"],
             num_edge_types=ds.meta["num_bond_type"],
             edge_dim=np_cfg.edge_dim or np_cfg.hidden_dim)
+    if task == "superpixels":
+        np_cfg = dataclasses.replace(
+            np_cfg, edge_dim=np_cfg.edge_dim or np_cfg.hidden_dim)
     generator = torch.Generator().manual_seed(cfg.params.seed)
-    model, loss_fn = MODEL_FACTORIES[task](np_cfg, generator)
+    model, loss_fn = build_model(task, np_cfg, ds.meta, generator)
     trainer = Trainer(model, loss_fn, cfg.params, task=task, device=device)
     bs = cfg.params.batch_size
+    mb = resolve_micro_batches(cfg.data.micro_batches, bs)
     # shuffled train: typical/worst per cfg; unshuffled val/test: exact
-    # geometry, and cached so the trainer keeps their edge contexts
+    # geometry (without micro-batching), and cached so the trainer keeps
+    # their edge contexts
     loaders = {split: BatchLoader(gs, batch_size=bs,
                                   shuffle=(split == "train"),
                                   seed=cfg.params.seed,
                                   geometry=cfg.data.geometry,
-                                  cache=(split != "train"))
+                                  cache=(split != "train"),
+                                  micro_batches=mb)
                for split, gs in ds.splits.items()}
     return ds, model, loss_fn, trainer, loaders
 
@@ -114,7 +129,8 @@ def run(argv=None):
     result = trainer.fit(loaders["train"], loaders["val"], loaders["test"])
     final = {split: trainer.evaluate(loaders[split])
              for split in ("train", "val", "test")}
-    metric = {"zinc": "mae", "hiv": "rocauc", "pcba": "ap"}[cfg.task]
+    metric = {"zinc": "mae", "sbm": "acc", "superpixels": "acc",
+              "hiv": "rocauc", "pcba": "ap"}[cfg.task]
     print(f"[dgn_tpu_torch] final {metric}: " + ", ".join(
         f"{split} {final[split][metric]:.4f}" for split in final))
     report = {

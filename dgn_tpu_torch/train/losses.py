@@ -1,11 +1,11 @@
 """Task losses, masked for padding (counterpart of `dgn_tpu/train/losses.py`).
 
 L1 (ZINC, reference nets/molecules_graph_regression/dgn_net.py:90-92),
-BCE with logits (HIV, :87-89) and NaN-masked 128-task BCE (PCBA
+class-weighted CE (SBM, SBMs dgn_net.py:67-81), plain CE (superpixels,
+:75-78), BCE with logits (HIV, :87-89) and NaN-masked 128-task BCE (PCBA
 dgn_net.py:99-102, train_PCBA_graph_classification.py:32-33).  Means are
 over real elements only, which matches the reference exactly because its
-batches are never padded.  The cross-entropies of SBM and superpixels are
-not ported yet."""
+batches are never padded."""
 from __future__ import annotations
 
 import torch
@@ -22,6 +22,34 @@ def l1_loss(scores: torch.Tensor, targets: torch.Tensor,
     diff = (scores.squeeze(-1) - targets.squeeze(-1)
             if targets.ndim == scores.ndim else scores.squeeze(-1) - targets)
     return _masked_mean(diff.abs(), mask)
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-row -log softmax(logits)[label]."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, labels.long()[:, None]).squeeze(-1)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Softmax cross-entropy, masked mean (superpixels)."""
+    return _masked_mean(_nll(logits, labels), mask)
+
+
+def weighted_cross_entropy_sbm(logits: torch.Tensor, labels: torch.Tensor,
+                               mask: torch.Tensor,
+                               n_classes: int) -> torch.Tensor:
+    """SBM class-balanced CE (reference SBMs dgn_net.py:67-81):
+    weight_c = (V - count_c) / V * [count_c > 0] over the V real nodes, and,
+    as torch's weighted CE does, the sum divided by the sum of the
+    per-sample weights."""
+    m = mask.to(logits.dtype)
+    v = m.sum()
+    counts = (torch.nn.functional.one_hot(labels.long(), n_classes)
+              .to(logits.dtype) * m[:, None]).sum(0)
+    weight = (v - counts) / v.clamp_min(1.0) * (counts > 0)
+    w = weight[labels.long()] * m
+    return (_nll(logits, labels) * w).sum() / w.sum().clamp_min(1e-12)
 
 
 def _bce_terms(z: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Host-side task metrics (counterpart of `dgn_tpu/train/metrics.py`).
 
-MAE (ZINC), ROC-AUC (ogbg-molhiv) and mean per-task average precision
-(ogbg-molpcba), replacing the OGB Evaluator's scoring rules.  Arrays hold
+MAE (ZINC), balanced node accuracy (SBM), accuracy (superpixels), ROC-AUC
+(ogbg-molhiv) and mean per-task average precision (ogbg-molpcba), the last
+two replacing the OGB Evaluator's scoring rules.  Arrays hold
 REAL (unpadded) elements; the trainer strips padding."""
 from __future__ import annotations
 
@@ -12,6 +13,20 @@ import scipy.stats
 def mae(scores: np.ndarray, targets: np.ndarray) -> float:
     """reference train/metrics.py:14-16 (F.l1_loss)."""
     return float(np.mean(np.abs(scores.reshape(-1) - targets.reshape(-1))))
+
+
+def accuracy(logits: np.ndarray, labels: np.ndarray) -> float:
+    """Argmax accuracy x 100 over the samples (superpixels; reference
+    metrics.py:19-28 returns the count, its training loops divide by n)."""
+    return float((logits.argmax(-1) == labels).mean() * 100.0)
+
+
+def accuracy_sbm(logits: np.ndarray, labels: np.ndarray) -> float:
+    """Balanced accuracy x 100 (reference metrics.py:37-54): the mean, over
+    the classes present in `labels`, of each class's recall."""
+    pred = logits.argmax(-1)
+    return float(np.mean([(pred[labels == c] == c).mean()
+                          for c in np.unique(labels)]) * 100.0)
 
 
 def roc_auc(scores: np.ndarray, labels: np.ndarray) -> float:

@@ -9,20 +9,24 @@ each step moves its batch over.  Eval batches that a loader replays
 (BatchLoader(cache=True)) keep their device copy with the EdgeContext
 attached, so their adjacency blocks are built once (with_edge_context).
 
-Tasks: ZINC (MAE; the plateau scheduler steps on the validation loss),
-ogbg-molhiv (ROC-AUC) and ogbg-molpcba (mean per-task AP); for the last two
-the objective is maximised and the scheduler steps on -objective (reference
-main_HIV.py:144).  Dropout draws from one torch.Generator on the trainer's
-device, seeded from params.seed.
+Tasks: ZINC (MAE), SBM (balanced node accuracy), superpixels (accuracy) —
+each with the validation loss as the plateau objective — and ogbg-molhiv
+(ROC-AUC) and ogbg-molpcba (mean per-task AP), whose objective is maximised
+so the scheduler steps on -objective (reference main_HIV.py:144).  Dropout
+draws from one torch.Generator on the trainer's device, seeded from
+params.seed.
 
-Not ported yet: augmentation (flip / rotate / distort), micro-batching,
-checkpointing, and the SBM and superpixel tasks.
+Micro-batching: a loader batch that arrives as a list of K micro-batches
+(BatchLoader(micro_batches=K)) takes K forward/backward passes and ONE
+optimizer step (`train_step`); see there for how it departs from dgn_tpu.
+
+Not ported yet: augmentation (flip / rotate / distort) and checkpointing.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,11 +54,13 @@ class TrainParams:
     distortion: float = 0.0
 
 
-TASKS = ("zinc", "hiv", "pcba")
+TASKS = ("zinc", "sbm", "superpixels", "hiv", "pcba")
+
+Batch = Union[GraphBatch, List[GraphBatch]]
 
 
 class Trainer:
-    """Single-device training loop for the ZINC, HIV and PCBA tasks."""
+    """Single-device training loop for the five benchmark tasks."""
 
     def __init__(self, model: torch.nn.Module, loss_fn, params: TrainParams,
                  task: str = "zinc", device="cuda"):
@@ -80,18 +86,54 @@ class Trainer:
         self._ctx_cache: Dict[int, Tuple[GraphBatch, GraphBatch]] = {}
 
     # ------------------------------------------------------------- steps
-    def train_step(self, gb: GraphBatch):
-        """One Adam step on one batch at the scheduler's lr; returns the
-        (detached) loss and scores."""
-        gb = gb.to(self.device)
+    def _loss_weight(self, gb: GraphBatch) -> torch.Tensor:
+        """The denominator of this task's batch-mean loss: weighting the
+        micro-batch losses by it makes their weighted mean EXACTLY the
+        full-batch loss (train/losses.py normalisations)."""
+        if self.task == "pcba":      # mean over labeled (graph, task) entries
+            lab = gb.labels
+            return ((lab == lab) & gb.graph_mask[:, None]).sum()
+        if self.task == "sbm":       # node-level loss
+            return gb.node_mask.sum()
+        return gb.graph_mask.sum()
+
+    def train_step(self, gb: Batch):
+        """One Adam step at the scheduler's lr on one batch, or on a list of
+        K micro-batches; returns the (detached) loss and the scores (a list
+        of K score tensors for a list).
+
+        Micro-batches (dgn_tpu trainer.py:162-201): K forward/backward
+        passes, the k-th loss scaled by w_k / sum(w) (w = _loss_weight) so
+        the accumulated gradient and the returned loss are the full-batch
+        ones, then one optimizer step.  As in dgn_tpu, batch norm takes each
+        micro-batch's own statistics and its running stats update K times,
+        and SBM's class weights are estimated per micro-batch.  Unlike
+        dgn_tpu, which hands every micro-batch the same dropout rng, dropout
+        draws from the one device generator in micro-batch order."""
+        micro = isinstance(gb, (list, tuple))
+        micros = list(gb) if micro else [gb]
+        scales = [None]
+        if micro:
+            # from the host batches, before they move to the device
+            w = [float(self._loss_weight(g)) for g in micros]
+            scales = [x / max(sum(w), 1.0) for x in w]
         self.model.train()
         set_learning_rate(self.optimizer, self.scheduler.lr)
-        scores = self.model(gb, self.dropout_generator)
-        loss = self.loss_fn(scores, gb)
         self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        losses, scores = [], []
+        for g, scale in zip(micros, scales):
+            g = g.to(self.device)
+            s = self.model(g, self.dropout_generator)
+            loss = self.loss_fn(s, g)
+            if scale is not None:
+                loss = loss * scale
+            loss.backward()
+            losses.append(loss.detach())
+            scores.append(s.detach())
         self.optimizer.step()
-        return loss.detach(), scores.detach()
+        if not micro:
+            return losses[0], scores[0]
+        return torch.stack(losses).sum(), scores
 
     @torch.no_grad()
     def eval_step(self, gb: GraphBatch):
@@ -119,18 +161,26 @@ class Trainer:
         acc = _MetricAccumulator(self.task)
         for gb in loader:
             loss, scores = self.train_step(gb)
-            acc.add(gb, scores.cpu().numpy(), float(loss))
+            if isinstance(gb, (list, tuple)):
+                # one loss per super-batch, recorded with its first micro
+                for k, (g, s) in enumerate(zip(gb, scores)):
+                    acc.add(g, s.cpu().numpy(), float(loss) if k == 0
+                            else None)
+            else:
+                acc.add(gb, scores.cpu().numpy(), float(loss))
         return acc.result()
 
     def evaluate(self, loader) -> Dict[str, float]:
+        """Each micro-batch of a list is evaluated as a batch of its own."""
         acc = _MetricAccumulator(self.task)
         # context reuse only helps a loader that replays identical batch
         # objects; otherwise id() never hits and the cache would only grow
         reuse = getattr(loader, "cache", False)
         for gb in loader:
-            scores, loss = self.eval_step(
-                self.with_edge_context(gb) if reuse else gb)
-            acc.add(gb, scores.cpu().numpy(), float(loss))
+            for g in (gb if isinstance(gb, (list, tuple)) else [gb]):
+                scores, loss = self.eval_step(
+                    self.with_edge_context(g) if reuse else g)
+                acc.add(g, scores.cpu().numpy(), float(loss))
         return acc.result()
 
     def fit(self, train_loader, val_loader=None, test_loader=None,
@@ -174,9 +224,11 @@ class Trainer:
 
 class _MetricAccumulator:
     """Task epoch metric, padding-stripped, reference semantics: ZINC the
-    mean of per-batch MAEs with the mean batch loss as the objective; HIV
-    ROC-AUC and PCBA mean per-task AP over the epoch's concatenated scores
-    and labels, each its own objective."""
+    mean of per-batch MAEs, SBM the mean of per-batch balanced node
+    accuracies, superpixels correct / count over the epoch, each with the
+    mean batch loss as the objective; HIV ROC-AUC and PCBA mean per-task AP
+    over the epoch's concatenated scores and labels, each its own
+    objective."""
 
     def __init__(self, task: str):
         self.task = task
@@ -185,15 +237,30 @@ class _MetricAccumulator:
         self.per_batch = []
         self.scores = []
         self.labels = []
+        self.correct = 0
+        self.count = 0
 
-    def add(self, gb: GraphBatch, scores: np.ndarray, loss: float):
-        self.loss_sum += loss
-        self.n_batches += 1
+    def add(self, gb: GraphBatch, scores: np.ndarray,
+            loss: Optional[float]):
+        """loss None: a further micro-batch of a super-batch whose loss was
+        recorded with its first."""
+        if loss is not None:
+            self.loss_sum += loss
+            self.n_batches += 1
+        if self.task == "sbm":
+            nmask = gb.node_mask.cpu().numpy()
+            self.per_batch.append(M.accuracy_sbm(
+                scores[nmask], gb.node_labels.cpu().numpy()[nmask]))
+            return
         gmask = gb.graph_mask.cpu().numpy()
         labels = gb.labels.cpu().numpy()[gmask]
         if self.task == "zinc":
             self.per_batch.append(M.mae(scores[gmask].reshape(-1),
                                         labels.reshape(-1)))
+        elif self.task == "superpixels":
+            self.correct += int((scores[gmask].argmax(-1)
+                                 == labels.reshape(-1)).sum())
+            self.count += len(labels)
         else:
             self.scores.append(scores[gmask])
             self.labels.append(labels)
@@ -203,6 +270,15 @@ class _MetricAccumulator:
         if self.task == "zinc":
             out["mae"] = (float(np.mean(self.per_batch)) if self.per_batch
                           else float("nan"))
+            out["objective"] = out["loss"]
+            return out
+        if self.task == "sbm":
+            out["acc"] = (float(np.mean(self.per_batch)) if self.per_batch
+                          else 0.0)
+            out["objective"] = out["loss"]
+            return out
+        if self.task == "superpixels":
+            out["acc"] = 100.0 * self.correct / max(self.count, 1)
             out["objective"] = out["loss"]
             return out
         s = np.concatenate(self.scores) if self.scores else np.zeros((0, 1))

@@ -328,11 +328,14 @@ def test_run_hiv_one_epoch_on_cpu(capsys):
 
 
 def test_micro_batches_auto_above_1024_raises():
-    with pytest.raises(NotImplementedError, match="micro-batching"):
-        trun.run(["--config", ZINC_CONFIG, "--batch_size", "2048",
-                  "--device", "cpu"])
-    cfg = load_config(ZINC_CONFIG, {"batch_size": 2048,
-                                    "micro_batches": "1"})
-    trun.check_ported(cfg)                        # one batch, as asked
+    """A batch above 1024 graphs resolves to micro-batches, as dgn_tpu's
+    run.py does, and runs (tests/test_torch_micro_batch.py); only a count
+    that is not a number raises."""
+    for mb in ("auto", "1", "3"):
+        trun.check_ported(load_config(ZINC_CONFIG, {"batch_size": 2048,
+                                                    "micro_batches": mb}))
     assert trun.resolve_micro_batches("auto", 2048) == 2
     assert trun.resolve_micro_batches("auto", 128) == 1
+    assert trun.resolve_micro_batches("3", 2048) == 3
+    with pytest.raises(ValueError):
+        trun.resolve_micro_batches("two", 2048)

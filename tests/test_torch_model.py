@@ -169,7 +169,8 @@ def test_zinc_adam_step_matches_reference_trainer(setup):
 @pytest.mark.parametrize("field,value", [("type_net", "towers"),
                                          ("edge_feat", True),
                                          ("aggregators", "mean dir1-0.1"),
-                                         ("compute_dtype", "bfloat16")])
+                                         ("compute_dtype", "bfloat16"),
+                                         ("readout", "none")])
 def test_unported_config_raises(field, value):
     cfg = dataclasses.replace(TConfig(hidden_dim=H, out_dim=H, L=L),
                               **{field: value})

@@ -49,10 +49,10 @@ def test_run_without_gpu_refuses_cpu_fallback():
 
 
 @pytest.mark.parametrize("flags", [["--layout", "flat"],
-                                   ["--micro_batches", "2"],
+                                   ["--n_buckets", "2"],
                                    ["--flip", "true"],
                                    ["--compute_dtype", "bfloat16"],
-                                   ["--dataset", "MNIST"]])
+                                   ["--dataset", "COLLAB"]])
 def test_run_rejects_unported_options(flags):
     with pytest.raises(NotImplementedError):
         trun.run(SMALL + ["--device", "cpu"] + flags)
