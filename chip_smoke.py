@@ -18,13 +18,19 @@ and no device line.  Phases, each of which fails the script:
    multi-block case and bf16 output), the segment_extremes forward/backward
    pair at the HIV batch and at one PCBA micro-batch (plus tie, star,
    multi-block and dense-block cases) with its grids;
+   The extremes pair is also held against its plain version at F = 14, the
+   width a towers layer gives each of its 5 towers at HIV's hidden 70;
 4. training, once per path: the port's entry point (dgn_tpu_torch.run)
-   trains each config of PATHS (ZINC, HIV, PATTERN, CIFAR10, and PCBA at
-   its batch of 2048 in 2 micro-batches) at full width on the card, with
-   every kernel launch counter set to 0 just before and read just after
-   each run, and checked against the count the path's loaders imply; then
-   each path's step time and device activity, and one step from identical
-   weights on the CPU and on the card.
+   trains each config of PATHS at full width on the card: ZINC, HIV,
+   PATTERN, CIFAR10, PCBA at its batch of 2048 in 2 micro-batches, and
+   with the options of the reference's own training scripts: ZINC with 5 towers,
+   flip and a positional encoding (zinc-towers), PCBA with the virtual node
+   (pcba-vn), CIFAR10 with rotation, distortion, flip, a 2-layer posttrans
+   and input dropout (cifar10-aug).  Every kernel launch counter is set to
+   0 just before and read just after each run, and checked against the
+   count the path's loaders and tower count imply; then each path's step
+   time and device activity, and one step from identical weights and
+   identical augmentation draws on the CPU and on the card.
 
 Prints a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`.  Needs no network; starts no process other
@@ -43,19 +49,43 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple, Tuple
 
 REPO = Path(__file__).resolve().parent
 CONFIGS = REPO / "configs"
-# (path, config, DGN layers with max/min, synthetic_size): PATTERN's 4096
-# gives 1024 train graphs (load_sbm keeps n // 4), PCBA's 4096 gives two
-# steps of 2048 graphs per epoch
-PATHS = (("zinc", "molecules_graph_regression_DGN_ZINC.json", 0, 1024),
-         ("hiv", "molecules_graph_classification_DGN_HIV.json", 4, 1024),
-         ("pattern", "SBMs_node_clustering_DGN_PATTERN.json", 0, 4096),
-         ("cifar10", "superpixels_graph_classification_DGN_CIFAR10.json", 0,
-          1024),
-         ("pcba", "molecules_graph_classification_DGN_PCBA.json", 4, 4096))
-EPOCHS = 2
+
+
+class TrainPath(NamedTuple):
+    """One training path: the config, the count of its DGN layers with
+    max/min, its synthetic_size and extra CLI flags."""
+    key: str
+    config: str
+    extremes_layers: int
+    size: int
+    flags: Tuple[str, ...] = ()
+
+
+ZINC = "molecules_graph_regression_DGN_ZINC.json"
+PCBA = "molecules_graph_classification_DGN_PCBA.json"
+CIFAR10 = "superpixels_graph_classification_DGN_CIFAR10.json"
+# PATTERN's 4096 gives 1024 train graphs (load_sbm keeps n // 4), PCBA's
+# 4096 gives two steps of 2048 graphs per epoch.  The augmentation values
+# are tests/test_train.py's: the repo has no published setting for them.
+PATHS = (
+    TrainPath("zinc", ZINC, 0, 1024),
+    TrainPath("hiv", "molecules_graph_classification_DGN_HIV.json", 4, 1024),
+    TrainPath("pattern", "SBMs_node_clustering_DGN_PATTERN.json", 0, 4096),
+    TrainPath("cifar10", CIFAR10, 0, 1024),
+    TrainPath("pcba", PCBA, 4, 4096),
+    TrainPath("zinc-towers", ZINC, 0, 1024,
+              ("--type_net", "towers", "--flip", "True", "--pos_enc_dim",
+               "5")),
+    TrainPath("pcba-vn", PCBA, 4, 4096, ("--virtual_node", "mean")),
+    TrainPath("cifar10-aug", CIFAR10, 0, 1024,
+              ("--augmentation", "15", "--distortion", "0.1", "--flip",
+               "True", "--posttrans_layers", "2", "--in_feat_dropout",
+               "0.1")))
+EPOCHS = 1
 MIN_STEPS = 24           # timed train steps per path (the first 3 dropped)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
@@ -152,6 +182,41 @@ def bound(bytes_moved: int, ops: int):
 
 
 _PREPARED = {}
+_LOADS = []          # one entry per load_dataset call since share_datasets
+
+
+def share_datasets() -> None:
+    """Build each synthetic dataset once per script run.  The kernel phase,
+    each path's launch count and step, and the path's entry-point run read
+    the same splits, and two paths of one config and size (cifar10 and
+    cifar10-aug) share them: a CIFAR10 build (1,228 non-symmetric eig
+    solves on the host) takes about 23 s.  run.prepare looks the loader up
+    at call time, so the entry point runs as a user calls it, minus the
+    repeated data generation; drive_path fails if a run loads its data
+    without this cache."""
+    from dgn_tpu_torch.data import datasets
+    load, cache = datasets.load_dataset, {}
+
+    def load_once(name, dp):
+        key = (name, dataclasses.astuple(dp))
+        _LOADS.append(key)
+        if key not in cache:
+            cache[key] = load(name, dp)
+        return cache[key]
+
+    datasets.load_dataset = load_once
+
+
+def towers_of(net) -> int:
+    """Towers per DGN layer of a net config; each runs its own max/min."""
+    return net.towers if net.type_net == "towers" else 1
+
+
+def path_argv(path: TrainPath) -> list:
+    """The entry point's arguments for the path, without epochs and
+    device."""
+    return ["--config", str(CONFIGS / path.config), "--synthetic_size",
+            str(path.size), *path.flags]
 
 
 def prepared(key: str):
@@ -161,9 +226,9 @@ def prepared(key: str):
     check from the same dataset."""
     if key not in _PREPARED:
         from dgn_tpu_torch import run
-        from dgn_tpu_torch.config import load_config
-        _, name, _, size = next(p for p in PATHS if p[0] == key)
-        cfg = load_config(str(CONFIGS / name), {"synthetic_size": size})
+        from dgn_tpu_torch.config import config_from_args
+        cfg, _ = config_from_args(path_argv(next(p for p in PATHS
+                                                 if p.key == key)))
         _PREPARED[key] = run.prepare(cfg, DEVICE) + (cfg,)
     return _PREPARED[key]
 
@@ -402,9 +467,10 @@ def time_extremes(torch, np, gb, ge: np.ndarray, shape: str) -> list:
 
 def extremes_phase(torch, np):
     """The segment_extremes kernel pair against its plain version (forward
-    and autograd backward) and an f64 oracle, then timed at the HIV batch
-    (128 synthetic ogbg-molhiv graphs) and at one PCBA micro-batch (1024
-    synthetic ogbg-molpcba graphs of a 2048-graph batch), F = 70.  One
+    and autograd backward) and an f64 oracle, at F = 70 and at a tower's
+    F = 14, then timed at the HIV batch (128 synthetic ogbg-molhiv graphs)
+    and at one PCBA micro-batch (1024 synthetic ogbg-molpcba graphs of a
+    2048-graph batch), F = 70.  One
     entry per kernel and shape: `segment_extremes_fwd`/`_bwd` at the HIV
     batch, `segment_extremes_fwd@pcba`/`_bwd@pcba` at the PCBA one."""
     from dgn_tpu_torch.data.synthetic import synthetic_ogb_mol
@@ -417,11 +483,11 @@ def extremes_phase(torch, np):
     pcba = first_train_batch("pcba")[0]
     rng = np.random.default_rng(7)
 
-    def layer_values(gb):
+    def layer_values(gb, f=f_main):
         # what a layer hands the kernel: ge = h[src] of post-ReLU node
         # features, so exact zeros tie (ReLU) and one src's value repeats
         # across its edges
-        h = np.maximum(rng.normal(size=(gb.num_nodes_padded, f_main)), 0.0)
+        h = np.maximum(rng.normal(size=(gb.num_nodes_padded, f)), 0.0)
         return h.astype(np.float32)[gb.src.numpy()]
 
     def quantized(gb, f):
@@ -432,7 +498,10 @@ def extremes_phase(torch, np):
     star = packed([star_graph(np, GraphData)])
     sbm = packed(multiblock_graphs(np, GraphData))
     dense = packed([dense_graph(np, GraphData)])
+    # towers of a 70-wide layer: 5 towers of 14 features, below one
+    # 16-feature tile
     cases = [("hiv_main_f70", hiv, ge_hiv),
+             ("hiv_towers_f14", hiv, layer_values(hiv, 14)),
              ("hiv_quantized_ties", hiv, quantized(hiv, f_main)),
              ("star_in_degree_119", star, quantized(star, 16)),
              ("sbm_multiblock", sbm, quantized(sbm, 16)),
@@ -504,21 +573,21 @@ def packed_units(loader) -> int:
     return sum(min(k, bs, n - i) for i in range(0, n, bs))
 
 
-def drive_path(torch, key: str, n_layers_extremes: int, size: int):
+def drive_path(torch, path: TrainPath):
     """Train the path's config through the user's entry point with every launch
     counter at 0 just before; fails unless the launches are what the path
     must make.  Per packed (micro-)batch: one adjacency build per forward
-    pass (each train step, each of the shuffled train loader's in the final
-    eval, and each cached val/test batch once, as the trainer keeps their
-    edge contexts), the extremes forward once per max/min layer per forward
-    pass, and their backward once per such layer per train step.  The
-    counts of packed batches come from the path's loaders as run.prepare
-    builds them (`prepared`).  Returns (report, launches)."""
+    pass whatever the tower count (each train step, each of the shuffled
+    train loader's in the final eval, and each cached val/test batch once,
+    as the trainer keeps their edge contexts), the extremes forward once per
+    max/min layer and tower per forward pass, and their backward once per
+    such layer and tower per train step.  The counts of packed batches come
+    from the path's loaders as run.prepare builds them (`prepared`).
+    Returns (report, launches)."""
     from dgn_tpu_torch import run
-    config = CONFIGS / next(p[1] for p in PATHS if p[0] == key)
-    argv = ["--config", str(config), "--epochs", str(EPOCHS),
-            "--synthetic_size", str(size), "--device", DEVICE]
+    argv = path_argv(path) + ["--epochs", str(EPOCHS), "--device", DEVICE]
     counters = launch_counters()
+    n_loads = len(_LOADS)
     for c in counters.values():
         c.launches = 0
     t0 = time.time()
@@ -526,20 +595,24 @@ def drive_path(torch, key: str, n_layers_extremes: int, size: int):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {name: c.launches for name, c in counters.items()}
-    units = {split: packed_units(ld)
-             for split, ld in prepared(key)[4].items()}
+    if len(_LOADS) != n_loads + 1:
+        fail(f"{path.key}: the run did not load its dataset once through "
+             "share_datasets' cache")
+    _, model, _, _, loaders, _ = prepared(path.key)
+    units = {split: packed_units(ld) for split, ld in loaders.items()}
     steps = EPOCHS * units["train"]
     evals = units["val"] + units["test"]
     forwards = steps + EPOCHS * evals + units["train"] + evals
+    n_ext = path.extremes_layers * towers_of(model.cfg)
     expected = {"build_pair_adjacency": steps + units["train"] + evals,
-                "segment_extremes_fwd": n_layers_extremes * forwards,
-                "segment_extremes_bwd": n_layers_extremes * steps}
-    print(f"path {config.name}: dgn_tpu_torch.run {' '.join(argv)} -> "
+                "segment_extremes_fwd": n_ext * forwards,
+                "segment_extremes_bwd": n_ext * steps}
+    print(f"path {path.key}: dgn_tpu_torch.run {' '.join(argv)} -> "
           f"{wall:.1f}s, final test {report['final']['test']}, packed "
           f"batches per pass {units}, launches {launches} (expected "
           f"{expected})")
     if launches != expected:
-        fail(f"{config.name}: kernel launches {launches} are not the "
+        fail(f"{path.key}: kernel launches {launches} are not the "
              f"expected {expected}")
     return report, launches
 
@@ -588,20 +661,23 @@ def step_profile(torch, trainer, batches, label: str, per_micro: dict):
         print(f"  {t_ms:.4f} ms/step  {name[:100]}")
 
 
-def cpu_vs_card(torch, task, cfg, meta, params, batch):
+def cpu_vs_card(torch, task, cfg, ds, params, batch):
     """One train step from identical weights and batch (or list of
-    micro-batches) on the CPU (plain versions) and on the card (kernels);
-    scores compare on real graphs, or real nodes for SBM."""
+    micro-batches) on the CPU (plain versions) and on the card (kernels),
+    with the same augmentation draws on both where params augment; scores
+    compare on real graphs, or real nodes for SBM."""
     from dgn_tpu_torch import run
-    from dgn_tpu_torch.train.trainer import Trainer
+    from dgn_tpu_torch.train.trainer import Trainer, draw_augmentation
     model_cpu, loss_cpu = run.build_model(
-        task, cfg, meta, torch.Generator().manual_seed(41))
+        task, cfg, ds, torch.Generator().manual_seed(41))
     model_gpu = copy.deepcopy(model_cpu)
     t_cpu = Trainer(model_cpu, loss_cpu, params, task=task, device="cpu")
     t_gpu = Trainer(model_gpu, loss_cpu, params, task=task, device=DEVICE)
-    l_cpu, s_cpu = t_cpu.train_step(batch)
-    l_gpu, s_gpu = t_gpu.train_step(batch)
     micros = batch if isinstance(batch, list) else [batch]
+    aug = draw_augmentation(micros[0].eig.shape, params,
+                            torch.Generator().manual_seed(41))
+    l_cpu, s_cpu = t_cpu.train_step(batch, aug)
+    l_gpu, s_gpu = t_gpu.train_step(batch, aug)
     if not isinstance(batch, list):
         s_cpu, s_gpu = [s_cpu], [s_gpu]
     pairs = []
@@ -631,7 +707,8 @@ def cpu_vs_card(torch, task, cfg, meta, params, batch):
                                 model_gpu.parameters()))
     n_param = sum(p.numel() for p in model_cpu.parameters())
     print(f"cpu vs cuda, one {task} step over {len(micros)} packed "
-          f"batch(es): |loss diff| {d_loss:.3g} (loss {float(l_cpu):.6f}), "
+          f"batch(es), augmentation {'on' if aug else 'off'}: "
+          f"|loss diff| {d_loss:.3g} (loss {float(l_cpu):.6f}), "
           f"max |score diff| {d_scores:.3g}, max |grad diff| {d_grad:.3g} "
           f"(max |grad| {g_max:.3g}), max |param diff after Adam| "
           f"{d_param[worst]:.3g} ({worst}; {rest:.3g} without the posttrans "
@@ -646,8 +723,9 @@ def training_phase(torch):
     """Every path of PATHS through the entry point, each path's step, and
     each path's CPU-vs-card step; returns {path: launches}."""
     out = {}
-    for key, _, n_ext, size in PATHS:
-        report, out[key] = drive_path(torch, key, n_ext, size)
+    for path in PATHS:
+        key = path.key
+        report, out[key] = drive_path(torch, path)
         ds, model, _, trainer, loaders, cfg = _PREPARED.pop(key)
         final = report["final"]
         if not all(math.isfinite(v) for split in ("train", "val", "test")
@@ -656,18 +734,19 @@ def training_phase(torch):
         train = loaders["train"]
         batches = list(train)
         net, p = model.cfg, cfg.params
+        n_ext = path.extremes_layers * towers_of(net)
         step_profile(
             torch, trainer, batches * math.ceil(MIN_STEPS / len(batches)),
             f"{key}, {net.type_net} hidden {net.hidden_dim} L={net.L}, batch "
             f"{p.batch_size} in {train.micro_batches} micro-batch(es), "
             f"dropout {net.dropout}, n_pad={train.n_pad} e_pad={train.e_pad} "
-            f"pairs={train.pair_pad}",
+            f"pairs={train.pair_pad}{', ' if path.flags else ''}"
+            f"{' '.join(path.flags)}",
             {"build_pair_adjacency": 1, "segment_extremes_fwd": n_ext,
              "segment_extremes_bwd": n_ext})
         # dropout 0: the CPU and CUDA generators draw different masks
-        cpu_vs_card(torch, cfg.task, dataclasses.replace(model.cfg,
-                                                         dropout=0.0),
-                    ds.meta, p, batches[0])
+        cpu_vs_card(torch, cfg.task, dataclasses.replace(
+            model.cfg, dropout=0.0, in_feat_dropout=0.0), ds, p, batches[0])
         del ds, model, trainer, loaders, batches
         torch.cuda.empty_cache()
     return out
@@ -681,7 +760,7 @@ def main() -> None:
                         "then has no launches and no device line follows")
     args = parser.parse_args()
     if not (REPO / "dgn_tpu_torch").is_dir() or not all(
-            (CONFIGS / name).is_file() for _, name, _, _ in PATHS):
+            (CONFIGS / path.config).is_file() for path in PATHS):
         fail("run chip_smoke.py from the root of a dgn_tpu checkout")
     import numpy as np
     import torch
@@ -707,6 +786,7 @@ def main() -> None:
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas {kernel}: {line.strip()}")
 
+    share_datasets()
     t = time.time()
     kernels = adjacency_phase(torch, np) + extremes_phase(torch, np)
     print(f"kernel phase: {time.time() - t:.1f}s")
@@ -721,10 +801,11 @@ def main() -> None:
         counter = kern["name"].split("@")[0]
         kern["launches"] = launches[kern["path"]][counter]
         kern["launches_by_path"] = {p: c[counter] for p, c in launches.items()}
-        for path, _, n_ext, _ in PATHS:
-            runs = counter == "build_pair_adjacency" or n_ext > 0
-            if runs and kern["launches_by_path"][path] <= 0:
-                fail(f"kernel {counter} was not launched on the {path} path")
+        for path in PATHS:
+            runs = counter == "build_pair_adjacency" or path.extremes_layers
+            if runs and kern["launches_by_path"][path.key] <= 0:
+                fail(f"kernel {counter} was not launched on the {path.key} "
+                     "path")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,13 @@ dicts of numpy arrays, as `model.init(...)` of `dgn_tpu` gives them
 `embedding_h/embedding`, `MLP_layer/Linear_j/kernel`, and batch_stats
 `layer_i/batchnorm_h/{mean,var}`).  The port's modules carry the same names
 and layouts (kernels [in, out]), so the mapping is by name: a torch entry
-`a.b.c` reads the flax path `a/b/c`, where the reference's parameter-holder
-level `FCLayer_0` has no torch counterpart.  Every entry must match in both
-directions, with equal shapes, or this raises.
+`a.b.c` reads the flax path `a/b/c`.  One level has no torch counterpart:
+the reference's LinearParams holds its kernel and bias in a child
+`FCLayer_0` that is its only child, where the port's LinearParams holds
+them itself.  So a `FCLayer_0` that is the only child of its parent and
+holds exactly {kernel, bias} is dropped; one with siblings (an MLP's
+`FCLayer_0`, `FCLayer_1`, ...) or with other entries is kept.  Every
+entry must match in both directions, with equal shapes, or this raises.
 """
 from __future__ import annotations
 
@@ -17,14 +21,16 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-_DROPPED = ("FCLayer_0",)
+_HOLDER = "FCLayer_0"
 
 
 def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
-    """Nested flax tree -> {"a/b/c": array}, FCLayer_0 levels dropped."""
+    """Nested flax tree -> {"a/b/c": array}, LinearParams holder levels
+    (a sole child FCLayer_0 of exactly {kernel, bias}) dropped."""
     out = {}
     for k, v in tree.items():
-        if k in _DROPPED:
+        if k == _HOLDER and len(tree) == 1 and isinstance(v, Mapping) \
+                and set(v) == {"kernel", "bias"}:
             out.update(flatten(v, prefix))
         elif isinstance(v, Mapping):
             out.update(flatten(v, f"{prefix}{k}/"))
@@ -35,7 +41,7 @@ def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def flax_path(torch_name: str) -> str:
     """The port's parameter or buffer name -> its key in the flattened flax
-    tree (FCLayer_0 levels dropped)."""
+    tree."""
     return torch_name.replace(".", "/")
 
 

@@ -5,7 +5,8 @@ superpixel datasets (MNIST, CIFAR10) and ogbg-molhiv/molpcba are ported:
 when `data_dir` holds no dataset files, three synthetic splits stand in,
 generated exactly as the reference package generates them.  Real files
 raise: their readers wait until a dataset file is available to test them
-against.
+against.  With pos_enc_dim > 0 ZINC stores pos_enc = eig[:, 1:P+1] per
+graph; the other datasets leave the model to slice the batch's eig.
 """
 from __future__ import annotations
 
@@ -37,18 +38,19 @@ def load_zinc(dp) -> DatasetSplits:
     if root and os.path.exists(os.path.join(root, "train.pickle")):
         raise NotImplementedError("the ZINC pickle reader is not ported yet; "
                                   "leave data_dir empty for synthetic ZINC")
-    if dp.pos_enc_dim > 0:
-        raise NotImplementedError("pos_enc_dim > 0 is not ported yet")
     k = 6  # molecules.py:199 get_eig(6, norm)
     n = dp.synthetic_size
-    return DatasetSplits(
-        "ZINC",
-        synthetic.synthetic_zinc(n, seed=1, k_eig=k, norm=dp.lap_norm),
-        synthetic.synthetic_zinc(max(n // 10, 16), seed=2, k_eig=k,
-                                 norm=dp.lap_norm),
-        synthetic.synthetic_zinc(max(n // 10, 16), seed=3, k_eig=k,
-                                 norm=dp.lap_norm),
-        meta={"num_atom_type": 28, "num_bond_type": 4})
+    splits = [synthetic.synthetic_zinc(size, seed=seed, k_eig=k,
+                                       norm=dp.lap_norm)
+              for size, seed in ((n, 1), (max(n // 10, 16), 2),
+                                 (max(n // 10, 16), 3))]
+    if dp.pos_enc_dim > 0:
+        # from the eig as loaded, so augmentation never reaches it
+        # (reference data/molecules.py:118-121)
+        for g in (g for gs in splits for g in gs):
+            g.pos_enc = g.eig[:, 1:dp.pos_enc_dim + 1]
+    return DatasetSplits("ZINC", *splits,
+                         meta={"num_atom_type": 28, "num_bond_type": 4})
 
 
 def load_sbm(name: str, dp) -> DatasetSplits:
@@ -113,8 +115,6 @@ def load_ogb(name: str, dp) -> DatasetSplits:
     if root and os.path.exists(os.path.join(root, "raw")):
         raise NotImplementedError("the OGB csv reader is not ported yet; "
                                   f"leave data_dir empty for synthetic {name}")
-    if dp.pos_enc_dim > 0:
-        raise NotImplementedError("pos_enc_dim > 0 is not ported yet")
     k = 4 if is_hiv else 3     # HIV.py:66 / PCBA.py:212
     n_tasks = 1 if is_hiv else 128
     n = dp.synthetic_size
@@ -125,7 +125,8 @@ def load_ogb(name: str, dp) -> DatasetSplits:
             nan_frac=0.0 if is_hiv else 0.3)
 
     return DatasetSplits(name, gen(n, 1), gen(max(n // 10, 16), 2),
-                         gen(max(n // 10, 16), 3), meta={"n_tasks": n_tasks})
+                         gen(max(n // 10, 16), 3),
+                         meta={"n_tasks": n_tasks})
 
 
 def load_dataset(name: str, dp) -> DatasetSplits:

@@ -1,19 +1,34 @@
-"""The simple and complex DGN layers, decomposed edge stage (counterpart of
-`dgn_tpu/layers/dgn.py:DGNLayerSimple`, `DGNLayerComplex`, `make_dgn_layer`).
+"""The DGN layers and the virtual node, decomposed edge stage (counterpart of
+`dgn_tpu/layers/dgn.py`: DGNLayerSimple, DGNLayerComplex, DGNTower,
+DGNLayerTower, VirtualNode, make_dgn_layer).
 
 Complex: with a linear pretrans over [h_src || h_dst] the per-edge message
 splits as msg_e = g[src_e] + q[dst_e] with g = h @ W1 and q = h @ W2 + b.
 Simple: no pretrans, the message is h[src], so g = h and q = 0.  The
-aggregators run on that form (ops/aggregators.aggregate_decomposed), and a
-linear posttrans over [h_in || scaled copies of the aggregate] (complex) or
-over the scaled copies alone (simple) is applied without materialising the
-concat (_fused_posttrans).
+aggregators run on that form (ops/aggregators.aggregate_decomposed).  A
+linear posttrans (posttrans_layers = 1) over [h_in || scaled copies of the
+aggregate] (complex) or over the scaled copies alone (simple) is applied
+without materialising the concat (_fused_posttrans); a deeper one is
+apply_scalers -> (concat h_in, complex) -> MLP.
 
 Layer order: posttrans -> graph norm (h * snorm_n) -> masked BatchNorm ->
-ReLU -> residual -> dropout.  Parity quirks kept on purpose: scalers apply
-only when len(scalers) > 1 (reference nets/dgn_layer.py:95-96), and the
-residual only when in_dim == out_dim (:76-77).  Not ported yet: the towers
-layer, the virtual node, deeper pretrans/posttrans MLPs and edge features.
+ReLU -> residual -> dropout.  A tower is a complex layer without the ReLU
+and the residual.  The towers layer runs `towers` of them, each on its own
+slice of the input (divide_input) or on all of it, concatenates their
+outputs, mixes them with a LeakyReLU FCLayer and adds the residual.  Parity
+quirks kept on purpose: scalers apply only when len(scalers) > 1
+(reference nets/dgn_layer.py:95-96), the residual only when in_dim ==
+out_dim (:76-77), and the mixing layer only when towers > 1 (:313-316).
+Every layer reads the one EdgeContext the model attaches to the batch, so
+one adjacency build serves every tower of every layer.
+
+The virtual node (reference nets/dgn_layer.py:12-49) pools each graph's
+nodes (mean, sum or logsum), adds the graph's state vn_h, runs an FCLayer
+(ReLU, dropout, masked BatchNorm over the real graphs), adds the residual to
+vn_h and the new vn_h to every node of its graph.
+
+Not ported yet: pretrans_layers > 1 (the per-edge message path) and edge
+features.
 """
 from __future__ import annotations
 
@@ -23,8 +38,9 @@ import torch
 from torch import nn
 
 from ..graph import GraphBatch
-from ..nn import LinearParams, MaskedBatchNorm, dropout
+from ..nn import MLP, FCLayer, LinearParams, MaskedBatchNorm, dropout
 from ..ops import aggregators as agg_ops
+from ..ops import mxu
 from ..ops import scalers as scaler_ops
 
 
@@ -60,13 +76,17 @@ def _fused_posttrans(kernel, bias, h_in, h_agg, gb: GraphBatch,
 
 
 class _DGNLayer(nn.Module):
-    """What both layers share: the aggregator and scaler setup, and the tail
-    graph norm -> masked BN -> ReLU -> residual -> dropout."""
+    """What the simple and complex layers and the tower share: the
+    aggregator and scaler setup, the posttrans, and the tail graph norm ->
+    masked BN -> (ReLU -> residual) -> dropout."""
+
+    relu = True
 
     def __init__(self, in_dim: int, out_dim: int, aggregators: Sequence[str],
                  scalers: Sequence[str], avg_d: Dict[str, float],
-                 dropout: float, graph_norm: bool, batch_norm: bool,
-                 residual: bool):
+                 generator: torch.Generator, dropout: float,
+                 graph_norm: bool, batch_norm: bool, residual: bool,
+                 posttrans_layers: int, input_concat: bool):
         super().__init__()
         self.aggregators = tuple(aggregators)
         agg_ops.check_ported(self.aggregators)
@@ -75,8 +95,26 @@ class _DGNLayer(nn.Module):
         self.dropout = dropout
         self.graph_norm = graph_norm
         self.residual = residual and in_dim == out_dim
-        self.n_scal = len(self.scalers) if len(self.scalers) > 1 else 1
+        n_scal = len(self.scalers) if len(self.scalers) > 1 else 1
+        width = (in_dim if input_concat else 0) \
+            + len(self.aggregators) * in_dim * n_scal
+        self.posttrans_layers = posttrans_layers
+        self.posttrans = (
+            LinearParams(width, out_dim, generator) if posttrans_layers == 1
+            else MLP(width, out_dim, out_dim, posttrans_layers, generator))
         self.batchnorm_h = MaskedBatchNorm(out_dim) if batch_norm else None
+
+    def _posttrans(self, gb: GraphBatch, h_in: Optional[torch.Tensor],
+                   agg: torch.Tensor) -> torch.Tensor:
+        """h_in None: no input concat (the simple layer)."""
+        if self.posttrans_layers == 1:
+            return _fused_posttrans(self.posttrans.kernel, self.posttrans.bias,
+                                    h_in, agg, gb, self.scalers, self.avg_d)
+        if len(self.scalers) > 1:
+            agg = scaler_ops.apply_scalers(self.scalers, agg, gb.in_degree,
+                                           self.avg_d)
+        x = agg if h_in is None else torch.cat([h_in, agg], dim=-1)
+        return self.posttrans(x)
 
     def _tail(self, gb: GraphBatch, h_in: torch.Tensor, h: torch.Tensor,
               generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -84,51 +122,47 @@ class _DGNLayer(nn.Module):
             h = h * gb.snorm_n
         if self.batchnorm_h is not None:
             h = self.batchnorm_h(h, gb.node_mask)
-        h = torch.relu(h)
+        if self.relu:
+            h = torch.relu(h)
         if self.residual:
             h = h_in + h
         return dropout(h, self.dropout, self.training, generator)
 
 
 class DGNLayerSimple(_DGNLayer):
-    """No pretrans, the message is h[src]; linear posttrans over the
-    aggregate alone (reference nets/dgn_layer.py:135-202), decomposed edge
-    stage with g = h and q = 0."""
+    """No pretrans, the message is h[src]; posttrans over the aggregate
+    alone (reference nets/dgn_layer.py:135-202), decomposed edge stage with
+    g = h and q = 0."""
 
     def __init__(self, in_dim: int, out_dim: int, aggregators: Sequence[str],
                  scalers: Sequence[str], avg_d: Dict[str, float],
                  generator: torch.Generator, dropout: float = 0.0,
                  graph_norm: bool = True, batch_norm: bool = True,
-                 residual: bool = True):
+                 residual: bool = True, posttrans_layers: int = 1):
         super().__init__(in_dim, out_dim, aggregators, scalers, avg_d,
-                         dropout, graph_norm, batch_norm, residual)
-        self.posttrans = LinearParams(
-            len(self.aggregators) * in_dim * self.n_scal, out_dim, generator)
+                         generator, dropout, graph_norm, batch_norm, residual,
+                         posttrans_layers, input_concat=False)
 
     def forward(self, gb: GraphBatch, h: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         agg = agg_ops.aggregate_decomposed(self.aggregators, gb.edge_ctx,
                                            h, None, h, layout=gb.mxu)
-        out = _fused_posttrans(self.posttrans.kernel, self.posttrans.bias,
-                               None, agg, gb, self.scalers, self.avg_d)
-        return self._tail(gb, h, out, generator)
+        return self._tail(gb, h, self._posttrans(gb, None, agg), generator)
 
 
 class DGNLayerComplex(_DGNLayer):
-    """Linear pretrans on [h_src || h_dst], input-concat linear posttrans
+    """Linear pretrans on [h_src || h_dst], input-concat posttrans
     (reference nets/dgn_layer.py:52-132), decomposed edge stage."""
 
     def __init__(self, in_dim: int, out_dim: int, aggregators: Sequence[str],
                  scalers: Sequence[str], avg_d: Dict[str, float],
                  generator: torch.Generator, dropout: float = 0.0,
                  graph_norm: bool = True, batch_norm: bool = True,
-                 residual: bool = True):
+                 residual: bool = True, posttrans_layers: int = 1):
         super().__init__(in_dim, out_dim, aggregators, scalers, avg_d,
-                         dropout, graph_norm, batch_norm, residual)
+                         generator, dropout, graph_norm, batch_norm, residual,
+                         posttrans_layers, input_concat=True)
         self.pretrans = LinearParams(2 * in_dim, in_dim, generator)
-        self.posttrans = LinearParams(
-            in_dim + len(self.aggregators) * in_dim * self.n_scal, out_dim,
-            generator)
 
     def forward(self, gb: GraphBatch, h: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -136,17 +170,107 @@ class DGNLayerComplex(_DGNLayer):
                                                 self.pretrans.bias, h)
         agg = agg_ops.aggregate_decomposed(self.aggregators, gb.edge_ctx,
                                            g_node, q_node, h, layout=gb.mxu)
-        out = _fused_posttrans(self.posttrans.kernel, self.posttrans.bias,
-                               h, agg, gb, self.scalers, self.avg_d)
-        return self._tail(gb, h, out, generator)
+        return self._tail(gb, h, self._posttrans(gb, h, agg), generator)
 
 
-def make_dgn_layer(type_net: str, **kw) -> _DGNLayer:
-    """DGNLayer(type_net=...) dispatch (reference nets/dgn_layer.py:328)."""
+class DGNTower(DGNLayerComplex):
+    """One tower: the complex layer without its ReLU and residual,
+    posttrans -> graph norm -> BN -> dropout (reference
+    nets/dgn_layer.py:205-276)."""
+
+    relu = False
+
+    def __init__(self, in_dim: int, out_dim: int, aggregators: Sequence[str],
+                 scalers: Sequence[str], avg_d: Dict[str, float],
+                 generator: torch.Generator, dropout: float = 0.0,
+                 graph_norm: bool = True, batch_norm: bool = True,
+                 posttrans_layers: int = 1):
+        super().__init__(in_dim, out_dim, aggregators, scalers, avg_d,
+                         generator, dropout, graph_norm, batch_norm,
+                         residual=False, posttrans_layers=posttrans_layers)
+
+
+class DGNLayerTower(nn.Module):
+    """`towers` DGNTowers (children tower_0 ..), each on its slice of the
+    input when divide_input, then the LeakyReLU mixing FCLayer when
+    towers > 1, then the residual (reference nets/dgn_layer.py:279-325)."""
+
+    def __init__(self, in_dim: int, out_dim: int, aggregators: Sequence[str],
+                 scalers: Sequence[str], avg_d: Dict[str, float],
+                 generator: torch.Generator, towers: int = 5,
+                 divide_input: bool = True, dropout: float = 0.0,
+                 graph_norm: bool = True, batch_norm: bool = True,
+                 residual: bool = False, posttrans_layers: int = 1):
+        super().__init__()
+        if divide_input and in_dim % towers != 0:
+            raise ValueError("towers must divide in_dim when divide_input")
+        if out_dim % towers != 0:
+            raise ValueError("towers must divide out_dim")
+        self.towers = towers
+        self.divide_input = divide_input
+        self.residual = residual and in_dim == out_dim
+        self.input_tower = in_dim // towers if divide_input else in_dim
+        for t in range(towers):
+            self.add_module(f"tower_{t}", DGNTower(
+                self.input_tower, out_dim // towers, aggregators, scalers,
+                avg_d, generator, dropout=dropout, graph_norm=graph_norm,
+                batch_norm=batch_norm, posttrans_layers=posttrans_layers))
+        self.mixing = (FCLayer(out_dim, out_dim, generator, "leakyrelu")
+                       if towers > 1 else None)
+
+    def forward(self, gb: GraphBatch, h: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        w = self.input_tower
+        outs = [getattr(self, f"tower_{t}")(
+            gb, h[:, t * w:(t + 1) * w] if self.divide_input else h,
+            generator) for t in range(self.towers)]
+        h_out = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
+        if self.mixing is not None:
+            h_out = self.mixing(h_out, gb.node_mask)
+        return h + h_out if self.residual else h_out
+
+
+VN_TYPES = ("mean", "sum", "logsum")
+
+
+class VirtualNode(nn.Module):
+    """Graph-global virtual node.  The state vn_h ([G_pad, dim], one row per
+    graph) is threaded by the caller: forward returns (new vn_h, new h)."""
+
+    def __init__(self, dim: int, generator: torch.Generator,
+                 dropout: float = 0.0, batch_norm: bool = False,
+                 residual: bool = True, vn_type: str = "mean"):
+        super().__init__()
+        if vn_type not in VN_TYPES:
+            raise ValueError(f"bad vn_type {vn_type!r} (one of {VN_TYPES})")
+        self.vn_type = vn_type
+        self.residual = residual
+        self.fc_layer = FCLayer(dim, dim, generator, "relu", dropout,
+                                batch_norm)
+
+    def forward(self, gb: GraphBatch, h: torch.Tensor, vn_h: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        pool = mxu.graph_pool_sum(h, gb.mxu, gb.num_graphs_padded)
+        if self.vn_type != "sum":
+            n = gb.n_nodes.to(pool.dtype)[:, None]
+            pool = torch.where(n > 0, pool / n.clamp_min(1.0), 0.0)
+            if self.vn_type == "logsum":
+                pool = pool * torch.log(n.clamp_min(1.0))
+        vn_tmp = self.fc_layer(vn_h + pool, gb.graph_mask, generator)
+        vn_h = vn_h + vn_tmp if self.residual else vn_tmp
+        return vn_h, h + mxu.graph_broadcast(vn_h, gb.node_graph,
+                                             gb.node_mask)
+
+
+def make_dgn_layer(type_net: str, **kw) -> nn.Module:
+    """DGNLayer(type_net=...) dispatch (reference nets/dgn_layer.py:328);
+    the simple and complex layers take no towers or divide_input."""
+    if type_net == "towers":
+        return DGNLayerTower(**kw)
+    kw.pop("towers", None)
+    kw.pop("divide_input", None)
     if type_net == "simple":
         return DGNLayerSimple(**kw)
     if type_net == "complex":
         return DGNLayerComplex(**kw)
-    if type_net == "towers":
-        raise NotImplementedError("the towers layer is not ported yet")
     raise ValueError(f"unknown type_net {type_net!r}")

@@ -3,11 +3,12 @@
 Each factory pins the per-task DGNConfig defaults and pairs the net with its
 masked loss: ZINC (L1), SBM PATTERN/CLUSTER (class-weighted CE per node),
 MNIST/CIFAR10 superpixels (CE), ogbg-molhiv (BCE with logits) and
-ogbg-molpcba (NaN-masked 128-task BCE)."""
+ogbg-molpcba (NaN-masked 128-task BCE).  pos_enc_in is the width of the
+positional encoding when cfg.pos_enc_dim > 0 (DGNModel)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -18,8 +19,8 @@ from .dgn_net import DGNConfig, DGNModel
 LossFn = Callable[..., torch.Tensor]
 
 
-def zinc_model(cfg: DGNConfig, generator: torch.Generator
-               ) -> Tuple[DGNModel, LossFn]:
+def zinc_model(cfg: DGNConfig, generator: torch.Generator,
+               pos_enc_in: Optional[int] = None) -> Tuple[DGNModel, LossFn]:
     """ZINC graph regression (reference molecules_graph_regression/
     dgn_net.py): atom-type Embedding input, L1 loss."""
     cfg = dataclasses.replace(cfg, node_encoder="embedding",
@@ -28,11 +29,11 @@ def zinc_model(cfg: DGNConfig, generator: torch.Generator
     def loss(scores, gb: GraphBatch):
         return losses.l1_loss(scores, gb.labels, gb.graph_mask)
 
-    return DGNModel(cfg, generator), loss
+    return DGNModel(cfg, generator, pos_enc_in=pos_enc_in), loss
 
 
-def sbm_model(cfg: DGNConfig, n_classes: int, generator: torch.Generator
-              ) -> Tuple[DGNModel, LossFn]:
+def sbm_model(cfg: DGNConfig, n_classes: int, generator: torch.Generator,
+              pos_enc_in: Optional[int] = None) -> Tuple[DGNModel, LossFn]:
     """SBM PATTERN/CLUSTER node classification (reference
     SBMs_node_classification/dgn_net.py): atom-type Embedding input, a
     per-node head, class-weighted CE."""
@@ -43,11 +44,13 @@ def sbm_model(cfg: DGNConfig, n_classes: int, generator: torch.Generator
         return losses.weighted_cross_entropy_sbm(
             logits, gb.node_labels, gb.node_mask, n_classes)
 
-    return DGNModel(cfg, generator), loss
+    return DGNModel(cfg, generator, pos_enc_in=pos_enc_in), loss
 
 
 def superpixels_model(cfg: DGNConfig, n_classes: int, in_dim: int,
-                      generator: torch.Generator) -> Tuple[DGNModel, LossFn]:
+                      generator: torch.Generator,
+                      pos_enc_in: Optional[int] = None
+                      ) -> Tuple[DGNModel, LossFn]:
     """MNIST/CIFAR10 superpixels (reference
     superpixels_graph_classification/dgn_net.py): a Linear over the in_dim
     float node features, the config's graph readout, CE."""
@@ -58,11 +61,12 @@ def superpixels_model(cfg: DGNConfig, n_classes: int, in_dim: int,
         labels = gb.labels.squeeze(-1) if gb.labels.ndim > 1 else gb.labels
         return losses.cross_entropy(logits, labels, gb.graph_mask)
 
-    return DGNModel(cfg, generator, in_dim=in_dim), loss
+    return DGNModel(cfg, generator, in_dim=in_dim,
+                    pos_enc_in=pos_enc_in), loss
 
 
-def hiv_model(cfg: DGNConfig, generator: torch.Generator
-              ) -> Tuple[DGNModel, LossFn]:
+def hiv_model(cfg: DGNConfig, generator: torch.Generator,
+              pos_enc_in: Optional[int] = None) -> Tuple[DGNModel, LossFn]:
     """ogbg-molhiv (reference HIV_graph_classification/dgn_net.py):
     AtomEncoder input, one logit, BCE with logits."""
     cfg = dataclasses.replace(cfg, node_encoder="atom", edge_encoder="bond",
@@ -72,11 +76,11 @@ def hiv_model(cfg: DGNConfig, generator: torch.Generator
         labels = gb.labels.squeeze(-1) if gb.labels.ndim > 1 else gb.labels
         return losses.bce_with_logits(scores, labels.float(), gb.graph_mask)
 
-    return DGNModel(cfg, generator), loss
+    return DGNModel(cfg, generator, pos_enc_in=pos_enc_in), loss
 
 
-def pcba_model(cfg: DGNConfig, generator: torch.Generator
-               ) -> Tuple[DGNModel, LossFn]:
+def pcba_model(cfg: DGNConfig, generator: torch.Generator,
+               pos_enc_in: Optional[int] = None) -> Tuple[DGNModel, LossFn]:
     """ogbg-molpcba 128-task (reference PCBA_graph_classification/
     dgn_net.py): AtomEncoder input, NaN-masked multi-task BCE."""
     cfg = dataclasses.replace(cfg, node_encoder="atom", edge_encoder="bond",
@@ -85,7 +89,7 @@ def pcba_model(cfg: DGNConfig, generator: torch.Generator
     def loss(scores, gb: GraphBatch):
         return losses.masked_bce_multitask(scores, gb.labels, gb.graph_mask)
 
-    return DGNModel(cfg, generator), loss
+    return DGNModel(cfg, generator, pos_enc_in=pos_enc_in), loss
 
 
 MODEL_FACTORIES = {"zinc": zinc_model, "sbm": sbm_model,

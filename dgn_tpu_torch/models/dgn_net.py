@@ -2,18 +2,27 @@
 
 Structure: node encoder (atom-type Embedding for ZINC and SBM, the OGB
 AtomEncoder for HIV/PCBA, a Linear over float features for superpixels) ->
-L simple or complex DGN layers ((L-1) at hidden_dim, the last at out_dim;
-reference molecules dgn_net.py:40-50), each ending in dropout -> graph
-readout (mean, sum, max, directional, directional_abs) -> MLPReadout per
-graph, or MLPReadout per node (readout "node", SBM).  The batch-constant EdgeContext (eig deltas, weight families,
-adjacency blocks) is built once per forward pass, or reused when the batch
-arrives with one attached (the trainer's eval cache).
+input dropout (in_feat_dropout) -> + Linear(positional encoding) when
+pos_enc_dim > 0 -> L simple, complex or towers DGN layers ((L-1) at
+hidden_dim, the last at out_dim; reference molecules dgn_net.py:40-50),
+each ending in dropout, with the virtual node after each but the last when
+virtual_node is set (PCBA dgn_net.py:78-83) -> graph readout (mean, sum,
+max, directional, directional_abs) -> MLPReadout per graph, or MLPReadout
+per node (readout "node", SBM).  The batch-constant EdgeContext (eig
+deltas, weight families, adjacency blocks) is built once per forward pass,
+from the batch's eig as it arrives (augmented in training), or reused when
+the batch arrives with one attached (the trainer's eval cache).
+
+The positional encoding is the batch's `pos_enc` where it carries one
+(ZINC stores eig[:, 1:P+1] of the loaded, unaugmented eig), else
+eig[:, 1:P+1] of the batch.  Its Linear takes the width that slice has,
+min(P, k_eig - 1); flax infers it, here the caller passes it (pos_enc_in).
 
 `DGNConfig` keeps the reference's full field set so the same JSON configs
 load; `DGNModel` raises NotImplementedError for any value the port does not
-cover yet (towers, the virtual node, edge features, input dropout, deeper
-pretrans/posttrans, bf16, readout "none") instead of
-silently running something else.
+cover yet (edge features, pretrans_layers > 1 outside the simple layer,
+decompose=False, bf16, bn_axis, readout "none") instead of silently running
+something else.
 """
 from __future__ import annotations
 
@@ -24,8 +33,8 @@ import torch
 from torch import nn
 
 from ..graph import GraphBatch
-from ..layers.dgn import make_dgn_layer
-from ..nn import Embedding, Linear, MLPReadout
+from ..layers.dgn import VirtualNode, make_dgn_layer
+from ..nn import Embedding, Linear, MLPReadout, dropout
 from ..ops import aggregators as agg_ops
 from ..ops import scalers as scaler_ops
 from .encoders import AtomEncoder
@@ -77,21 +86,22 @@ class DGNConfig:
 
 def check_ported(cfg: DGNConfig) -> None:
     """Raise NotImplementedError for a configuration the port lacks."""
-    if cfg.type_net not in ("simple", "complex"):
-        raise NotImplementedError(f"type_net {cfg.type_net!r} is not ported "
-                                  "yet (simple and complex are)")
+    if cfg.type_net not in ("simple", "complex", "towers"):
+        raise ValueError(f"unknown type_net {cfg.type_net!r}")
     if cfg.node_encoder not in ("embedding", "atom", "linear"):
         raise ValueError(f"unknown node_encoder {cfg.node_encoder!r}")
-    wanted = dict(edge_feat=False, pretrans_layers=1, posttrans_layers=1,
-                  pos_enc_dim=0, in_feat_dropout=0.0, bn_axis=None,
-                  compute_dtype=None, decompose=True)
+    if cfg.pretrans_layers != 1 and cfg.type_net != "simple":
+        raise NotImplementedError(
+            f"pretrans_layers={cfg.pretrans_layers} on the {cfg.type_net} "
+            "layer is not ported yet (it takes the per-edge message path; "
+            "the port runs a linear pretrans)")
+    wanted = dict(edge_feat=False, bn_axis=None, compute_dtype=None,
+                  decompose=True)
     for name, value in wanted.items():
         if getattr(cfg, name) != value:
             raise NotImplementedError(
                 f"DGNConfig.{name}={getattr(cfg, name)!r} is not ported yet "
                 f"(the port runs {name}={value!r})")
-    if cfg.virtual_node and cfg.virtual_node.lower() != "none":
-        raise NotImplementedError("the virtual node is not ported yet")
     if cfg.readout == "none":
         raise NotImplementedError("readout 'none' (raw node embeddings) is "
                                   "not ported yet")
@@ -107,16 +117,19 @@ def edge_context_for(gb: GraphBatch, cfg: DGNConfig) -> agg_ops.EdgeContext:
 
 
 class DGNModel(nn.Module):
-    """Node encoder -> L x DGN layer -> graph readout -> MLPReadout, or
-    MLPReadout per node.
+    """Node encoder -> L x DGN layer (+ virtual node) -> graph readout ->
+    MLPReadout, or MLPReadout per node.
 
-    Children carry the reference's parameter names (embedding_h, layer_i,
-    MLP_layer) so convert.load_jax_params maps one tree onto the other.
-    in_dim is the float feature width the `linear` node encoder takes (flax
-    infers it from the first batch; here it comes from the dataset)."""
+    Children carry the reference's parameter names (embedding_h,
+    embedding_pos_enc, layer_i, virtual_node_i, MLP_layer) so
+    convert.load_jax_params maps one tree onto the other.  in_dim is the
+    float feature width the `linear` node encoder takes and pos_enc_in the
+    positional encoding's width (flax infers both from the first batch;
+    here they come from the dataset, run.build_model)."""
 
     def __init__(self, cfg: DGNConfig, generator: torch.Generator,
-                 in_dim: Optional[int] = None):
+                 in_dim: Optional[int] = None,
+                 pos_enc_in: Optional[int] = None):
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
@@ -130,15 +143,33 @@ class DGNModel(nn.Module):
         else:
             self.embedding_h = Embedding(cfg.num_node_types, cfg.hidden_dim,
                                          generator)
+        if cfg.pos_enc_dim > 0:
+            if pos_enc_in is None:
+                raise ValueError("pos_enc_dim > 0 needs pos_enc_in, the "
+                                 "width of the batches' positional encoding")
+            self.embedding_pos_enc = Linear(pos_enc_in, cfg.hidden_dim,
+                                            generator)
+        self.use_vn = bool(cfg.virtual_node) \
+            and cfg.virtual_node.lower() != "none"
         in_dim = cfg.hidden_dim
         for i in range(cfg.L):
-            out_dim = cfg.out_dim if i == cfg.L - 1 else cfg.hidden_dim
+            last = i == cfg.L - 1
+            out_dim = cfg.out_dim if last else cfg.hidden_dim
+            divide = cfg.divide_input
+            if last and cfg.divide_input_last is not None:
+                divide = cfg.divide_input_last
             self.add_module(f"layer_{i}", make_dgn_layer(
                 cfg.type_net, in_dim=in_dim, out_dim=out_dim,
                 aggregators=cfg.agg_names(), scalers=cfg.scaler_names(),
                 avg_d=avg_d, generator=generator, dropout=cfg.dropout,
                 graph_norm=cfg.graph_norm, batch_norm=cfg.batch_norm,
-                residual=cfg.residual))
+                residual=cfg.residual, posttrans_layers=cfg.posttrans_layers,
+                towers=cfg.towers, divide_input=divide))
+            if self.use_vn and not last:
+                self.add_module(f"virtual_node_{i}", VirtualNode(
+                    cfg.hidden_dim, generator, dropout=cfg.dropout,
+                    batch_norm=cfg.batch_norm, residual=cfg.residual,
+                    vn_type=cfg.virtual_node))
             in_dim = out_dim
         # the per-node head keeps MLPReadout's default halving widths, as in
         # the reference (dgn_net.py:205-206); the directional readouts
@@ -153,14 +184,24 @@ class DGNModel(nn.Module):
                 dropout_generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         """[G, n_out] scores ([N, n_out] per node for readout "node").
-        Batch norm and dropout follow self.training;
-        dropout > 0 in training draws its masks from dropout_generator, a
+        Batch norm and dropout follow self.training; dropout and input
+        dropout in training draw their masks from dropout_generator, a
         torch.Generator on the model's device."""
+        cfg = self.cfg
         if gb.edge_ctx is None:
-            gb = dataclasses.replace(gb, edge_ctx=edge_context_for(gb, self.cfg))
+            gb = dataclasses.replace(gb, edge_ctx=edge_context_for(gb, cfg))
         h = self.embedding_h(gb.node_feat)
-        for i in range(self.cfg.L):
+        h = dropout(h, cfg.in_feat_dropout, self.training, dropout_generator)
+        if cfg.pos_enc_dim > 0:
+            pe = gb.pos_enc if gb.pos_enc is not None \
+                else gb.eig[:, 1:cfg.pos_enc_dim + 1]
+            h = h + self.embedding_pos_enc(pe)
+        vn_h = h.new_zeros((gb.num_graphs_padded, cfg.hidden_dim))
+        for i in range(cfg.L):
             h = getattr(self, f"layer_{i}")(gb, h, dropout_generator)
+            if self.use_vn and i < cfg.L - 1:
+                vn_h, h = getattr(self, f"virtual_node_{i}")(
+                    gb, h, vn_h, dropout_generator)
         if self.cfg.readout == "node":
             return self.MLP_layer(h)
         return self.MLP_layer(graph_readout(gb, h, self.cfg.readout))

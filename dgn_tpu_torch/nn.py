@@ -4,9 +4,11 @@ Parameters keep the reference package's names and layouts, so its weights
 load without transposes (convert.py): a linear kernel is stored [in, out]
 and applied as x @ kernel.  Initialisers reproduce the reference DGN
 distributions and draw from an explicit torch.Generator:
-  * LinearParams (the DGN layers' pretrans/posttrans FCLayer): xavier
-    uniform with gain 1/in_size, zero bias (reference nets/layers.py:96-99);
-  * Linear (MLPReadout): torch.nn.Linear's default U(+-1/sqrt(in));
+  * LinearParams and FCLayer (the DGN layers' pretrans/posttrans, the towers'
+    mixing, the virtual node's fc_layer): xavier uniform with gain
+    1/in_size, zero bias (reference nets/layers.py:96-99);
+  * Linear (MLPReadout, the linear encoders): torch.nn.Linear's default
+    U(+-1/sqrt(in));
   * Embedding: N(0, 1).
 `dropout` has flax `nn.Dropout` semantics and draws from an explicit
 generator on the tensor's device.
@@ -14,10 +16,42 @@ generator on the tensor's device.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+def _glu(x):
+    a, b = x.chunk(2, dim=-1)
+    return a * torch.sigmoid(b)
+
+
+ACTIVATIONS: Dict[str, Optional[Callable]] = {
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "elu": F.elu,
+    "selu": F.selu,
+    "glu": _glu,
+    "leakyrelu": lambda x: F.leaky_relu(x, 0.01),  # torch's default slope
+    "softplus": F.softplus,
+    "none": None,
+}
+
+
+def get_activation(name) -> Optional[Callable]:
+    """Name (any case), callable or None -> activation function, None for
+    "none" (reference nets/layers.py:7-18)."""
+    if name is None:
+        return None
+    if callable(name):
+        return name
+    key = str(name).lower()
+    if key not in ACTIVATIONS:
+        raise ValueError(f"unsupported activation {name!r}")
+    return ACTIVATIONS[key]
 
 
 def _uniform(shape, bound: float, generator: torch.Generator) -> nn.Parameter:
@@ -29,7 +63,8 @@ class LinearParams(nn.Module):
     """{kernel [in, out], bias [out]} of a linear layer whose computation
     lives in the caller: the decomposed DGN layer splits the pretrans kernel
     across edge endpoints and folds the scalers into the posttrans kernel
-    (layers/dgn.py)."""
+    (layers/dgn.py).  The reference nests these under a `FCLayer_0` holder
+    level, which convert.py drops."""
 
     def __init__(self, in_size: int, out_size: int,
                  generator: torch.Generator):
@@ -117,6 +152,55 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     keep = torch.rand(x.shape, generator=generator, device=x.device,
                       dtype=x.dtype) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+class FCLayer(LinearParams):
+    """Dense -> activation -> dropout -> masked batch norm, in that order
+    (reference nets/layers.py:101-112; batch norm after dropout is a quirk
+    kept on purpose).  kernel and bias as LinearParams; the batch norm is
+    the child `MaskedBatchNorm_0`, as the reference names it, and takes its
+    statistics over the rows where `mask` is True."""
+
+    def __init__(self, in_size: int, out_size: int,
+                 generator: torch.Generator, activation="relu",
+                 dropout: float = 0.0, b_norm: bool = False):
+        super().__init__(in_size, out_size, generator)
+        self.activation = get_activation(activation)
+        self.rate = dropout
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(out_size) if b_norm else None
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = x @ self.kernel + self.bias
+        if self.activation is not None:
+            h = self.activation(h)
+        h = dropout(h, self.rate, self.training, generator)
+        if self.MaskedBatchNorm_0 is not None:
+            h = self.MaskedBatchNorm_0(h, mask)
+        return h
+
+
+class MLP(nn.Module):
+    """`layers` FCLayers: all but the last at hidden_size with ReLU, the
+    last at out_size with no activation; no dropout, no batch norm
+    (reference nets/layers.py:120-155 as every DGN layer calls it).
+    Children FCLayer_0 .. FCLayer_{layers-1}.  The DGN layers use it for
+    posttrans_layers > 1; a single linear layer is LinearParams there."""
+
+    def __init__(self, in_size: int, hidden_size: int, out_size: int,
+                 layers: int, generator: torch.Generator):
+        super().__init__()
+        layers = max(layers, 1)
+        dims = [in_size] + [hidden_size] * (layers - 1) + [out_size]
+        for i in range(layers):
+            self.add_module(f"FCLayer_{i}", FCLayer(
+                dims[i], dims[i + 1], generator,
+                "none" if i == layers - 1 else "relu"))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.children():
+            x = layer(x)
+        return x
 
 
 class MLPReadout(nn.Module):

@@ -10,7 +10,7 @@ dst_block) adjacency blocks built once per forward pass
 
 The reference expresses gathers and scatters as one-hot matmuls because
 XLA:TPU scatters are slow; that is a TPU workaround.  Here their contracts
-are plain `index_add_` on global indices.
+are plain `index_add_` and `index_select` on global indices.
 """
 from __future__ import annotations
 
@@ -183,3 +183,11 @@ def graph_pool_sum(h: torch.Tensor, layout: MXULayout,
     """Per-graph sum over nodes (pad nodes excluded via the TILE sentinel)."""
     return block_scatter_sum(h, layout.local_graph, layout.node_chunk_graph,
                              layout.n_graph_blocks)[:g_pad]
+
+
+def graph_broadcast(vg: torch.Tensor, node_graph: torch.Tensor,
+                    node_mask: torch.Tensor) -> torch.Tensor:
+    """Per-node copy of its graph's row of vg [G_pad, F], one index_select
+    over the batch's node_graph; pad nodes get zeros."""
+    return torch.where(node_mask[:, None], vg.index_select(0, node_graph),
+                       0.0)

@@ -55,6 +55,16 @@ def parse_names(names) -> list[str]:
     return names
 
 
+def apply_scalers(names: Sequence[str], h: torch.Tensor, deg: torch.Tensor,
+                  avg_d: Dict[str, float]) -> torch.Tensor:
+    """The scaled copies of h, concatenated on the feature axis.  The layers
+    apply scalers only when len(scalers) > 1 (reference
+    nets/dgn_layer.py:95-96); that gate lives in the layer, not here."""
+    deg = deg.to(h.dtype)
+    outs = [SCALERS[n](h, deg, avg_d) for n in names]
+    return torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
+
+
 def scaler_columns(names: Sequence[str], deg: torch.Tensor,
                    avg_d: Dict[str, float],
                    dtype=torch.float32) -> torch.Tensor:

@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -55,21 +56,38 @@ def check_ported(cfg) -> None:
                                   " the port runs float32")
 
 
-def build_model(task: str, np_cfg, meta, generator: torch.Generator):
-    """(model, loss) from the task's factory; SBM and superpixels take their
-    class count, and superpixels its float feature width, from the
-    dataset's meta."""
+def pos_enc_width(np_cfg, graph) -> Optional[int]:
+    """The width of the positional encoding the model gets: the graph's
+    stored pos_enc (ZINC), else the columns 1..P of its eig, of which there
+    are min(P, k_eig - 1); None without one."""
+    if np_cfg.pos_enc_dim <= 0:
+        return None
+    if graph.pos_enc is not None:
+        return graph.pos_enc.shape[1]
+    return min(np_cfg.pos_enc_dim, graph.eig.shape[1] - 1)
+
+
+def build_model(task: str, np_cfg, ds, generator: torch.Generator):
+    """(model, loss) from the task's factory for the dataset ds; SBM and
+    superpixels take their class count, and superpixels its float feature
+    width, from its meta, and the positional encoding its width from its
+    first train graph."""
     from .models import MODEL_FACTORIES
     factory = MODEL_FACTORIES[task]
+    meta = ds.meta
+    pe = pos_enc_width(np_cfg, ds.train[0])
     if task == "sbm":
-        return factory(np_cfg, meta["n_classes"], generator)
+        return factory(np_cfg, meta["n_classes"], generator, pos_enc_in=pe)
     if task == "superpixels":
-        return factory(np_cfg, meta["n_classes"], meta["in_dim"], generator)
-    return factory(np_cfg, generator)
+        return factory(np_cfg, meta["n_classes"], meta["in_dim"], generator,
+                       pos_enc_in=pe)
+    return factory(np_cfg, generator, pos_enc_in=pe)
 
 
 def prepare(cfg, device="cuda"):
-    """Dataset + model + trainer + loaders, shared by run() and tests."""
+    """Dataset + model + trainer + loaders, shared by run() and tests.
+    `datasets.load_dataset` is looked up at call time, so a caller may
+    substitute a caching loader (chip_smoke.py's share_datasets)."""
     from .data.datasets import load_dataset
     from .data.loader import BatchLoader
     from .ops.scalers import degree_stats
@@ -93,8 +111,11 @@ def prepare(cfg, device="cuda"):
     if task == "superpixels":
         np_cfg = dataclasses.replace(
             np_cfg, edge_dim=np_cfg.edge_dim or np_cfg.hidden_dim)
+    if cfg.data.pos_enc_dim > 0:
+        np_cfg = dataclasses.replace(np_cfg,
+                                     pos_enc_dim=cfg.data.pos_enc_dim)
     generator = torch.Generator().manual_seed(cfg.params.seed)
-    model, loss_fn = build_model(task, np_cfg, ds.meta, generator)
+    model, loss_fn = build_model(task, np_cfg, ds, generator)
     trainer = Trainer(model, loss_fn, cfg.params, task=task, device=device)
     bs = cfg.params.batch_size
     mb = resolve_micro_batches(cfg.data.micro_batches, bs)

@@ -16,11 +16,19 @@ so the scheduler steps on -objective (reference main_HIV.py:144).  Dropout
 draws from one torch.Generator on the trainer's device, seeded from
 params.seed.
 
+Augmentation (params flip / augmentation / distortion, dgn_tpu
+trainer.py:58-68): each train step rotates, then flips, then distorts the
+batch's eig field (ops/field.py), each only when on (augmentation and
+distortion above 1e-7), before the model builds the step's EdgeContext
+from it.  The draws come from a second generator on the trainer's device,
+seeded from params.seed on a stream of its own, as dgn_tpu splits its
+augmentation key from its dropout key.  Eval batches are never augmented.
+
 Micro-batching: a loader batch that arrives as a list of K micro-batches
 (BatchLoader(micro_batches=K)) takes K forward/backward passes and ONE
 optimizer step (`train_step`); see there for how it departs from dgn_tpu.
 
-Not ported yet: augmentation (flip / rotate / distort) and checkpointing.
+Not ported yet: checkpointing.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import numpy as np
 import torch
 
 from ..graph import GraphBatch
+from ..ops import field
 from . import metrics as M
 from .optim import ReduceLROnPlateau, adam_l2, set_learning_rate
 
@@ -59,6 +68,55 @@ TASKS = ("zinc", "sbm", "superpixels", "hiv", "pcba")
 Batch = Union[GraphBatch, List[GraphBatch]]
 
 
+@dataclasses.dataclass
+class AugDraws:
+    """One train step's augmentation draws: uniforms in [0, 1) at the
+    packed batch's node count N and eig width K, None where that
+    augmentation is off."""
+    rotate: Optional[torch.Tensor] = None     # [N]
+    flip: Optional[torch.Tensor] = None       # [N, K]
+    distort: Optional[torch.Tensor] = None    # [N]
+
+    def to(self, device) -> "AugDraws":
+        return AugDraws(*(None if t is None else t.to(device)
+                          for t in (self.rotate, self.flip, self.distort)))
+
+
+def augments(p: TrainParams) -> bool:
+    return p.flip or p.augmentation > 1e-7 or p.distortion > 1e-7
+
+
+def draw_augmentation(shape, p: TrainParams, generator: torch.Generator
+                      ) -> Optional[AugDraws]:
+    """The draws for an eig of `shape` (N, K) under p, from generator (on
+    the device it draws on); None when p augments nothing."""
+    if not augments(p):
+        return None
+    n, k = shape
+
+    def u(*size):
+        return torch.rand(size, generator=generator, device=generator.device)
+
+    return AugDraws(rotate=u(n) if p.augmentation > 1e-7 else None,
+                    flip=u(n, k) if p.flip else None,
+                    distort=u(n) if p.distortion > 1e-7 else None)
+
+
+def augment(gb: GraphBatch, draws: AugDraws, p: TrainParams) -> GraphBatch:
+    """gb with its eig rotated, flipped and distorted, in that order
+    (dgn_tpu trainer.py:58-68 _augment), and no EdgeContext attached, so
+    the model builds the step's context from the augmented eig."""
+    eig = gb.eig
+    if draws.rotate is not None:
+        eig = field.rotate_field(eig, draws.rotate, p.augmentation)
+    if draws.flip is not None:
+        eig = field.sign_flip(eig, draws.flip)
+    if draws.distort is not None:
+        eig = field.distort_field(eig, draws.distort, p.distortion,
+                                  node_mask=gb.node_mask)
+    return dataclasses.replace(gb, eig=eig, edge_ctx=None)
+
+
 class Trainer:
     """Single-device training loop for the five benchmark tasks."""
 
@@ -66,10 +124,6 @@ class Trainer:
                  task: str = "zinc", device="cuda"):
         if task not in TASKS:
             raise NotImplementedError(f"task {task!r} is not ported yet")
-        if params.flip or params.augmentation > 1e-7 \
-                or params.distortion > 1e-7:
-            raise NotImplementedError("augmentation (flip, augmentation, "
-                                      "distortion) is not ported yet")
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
@@ -77,6 +131,9 @@ class Trainer:
         self.task = task
         self.dropout_generator = torch.Generator(
             device=self.device).manual_seed(params.seed)
+        aug_seed = np.random.SeedSequence(params.seed).spawn(1)[0]
+        self.aug_generator = torch.Generator(device=self.device).manual_seed(
+            int(aug_seed.generate_state(1)[0]))
         self.optimizer = adam_l2(self.model.parameters(), params.init_lr,
                                  params.weight_decay)
         self.scheduler = ReduceLROnPlateau(
@@ -97,10 +154,16 @@ class Trainer:
             return gb.node_mask.sum()
         return gb.graph_mask.sum()
 
-    def train_step(self, gb: Batch):
+    def train_step(self, gb: Batch, aug: Optional[AugDraws] = None):
         """One Adam step at the scheduler's lr on one batch, or on a list of
         K micro-batches; returns the (detached) loss and the scores (a list
         of K score tensors for a list).
+
+        When params augment, the step draws once from aug_generator, unless
+        the caller hands in the draws (aug), and every micro-batch takes the
+        same draws: micro-batches share their pads, and dgn_tpu hands each
+        the same augmentation key, hence the same draws at the same padded
+        positions.
 
         Micro-batches (dgn_tpu trainer.py:162-201): K forward/backward
         passes, the k-th loss scaled by w_k / sum(w) (w = _loss_weight) so
@@ -120,9 +183,19 @@ class Trainer:
         self.model.train()
         set_learning_rate(self.optimizer, self.scheduler.lr)
         self.optimizer.zero_grad(set_to_none=True)
+        if aug is None:
+            aug = draw_augmentation(micros[0].eig.shape, self.p,
+                                    self.aug_generator)
+        elif not augments(self.p):
+            raise ValueError("augmentation draws for params that augment "
+                             "nothing")
+        if aug is not None:
+            aug = aug.to(self.device)
         losses, scores = [], []
         for g, scale in zip(micros, scales):
             g = g.to(self.device)
+            if aug is not None:
+                g = augment(g, aug, self.p)
             s = self.model(g, self.dropout_generator)
             loss = self.loss_fn(s, g)
             if scale is not None:

@@ -97,6 +97,57 @@ def test_load_jax_params_covers_every_parameter(setup):
                                 if k != "MLP_layer"}, batch_stats)
 
 
+def test_load_jax_params_covers_every_option_of_the_layer_library():
+    """Towers (tower_t, mixing), posttrans_layers 2 (FCLayer_0 and
+    FCLayer_1 side by side), the virtual node (fc_layer with its
+    MaskedBatchNorm_0) and the positional encoding: every parameter and
+    buffer maps, in both directions, and a missing one raises."""
+    graphs = jsyn.synthetic_zinc(6, seed=5)
+    for g in graphs:
+        g.pos_enc = g.eig[:, 1:4]
+    kw = dict(hidden_dim=10, out_dim=10, L=3, type_net="towers", towers=2,
+              posttrans_layers=2, virtual_node="mean", pos_enc_dim=3)
+    jmodel, _ = jzinc(JConfig(**kw))
+    variables = jax.eval_shape(
+        lambda key: jmodel.init(key, jgraph.pack_graphs(
+            graphs, mxu_layout=True), deterministic=True),
+        jax.random.PRNGKey(0))
+    rng = np.random.default_rng(2)
+    params, batch_stats = (jax.tree_util.tree_map(
+        lambda s: rng.normal(size=s.shape).astype(np.float32), variables[k])
+        for k in ("params", "batch_stats"))
+    model, _ = tzinc(TConfig(**kw), torch.Generator().manual_seed(0),
+                     pos_enc_in=3)
+    load_jax_params(model, params, batch_stats)
+    flat = flatten(params)
+    for path in ("layer_0/tower_1/posttrans/FCLayer_1/kernel",
+                 "layer_0/tower_0/pretrans/kernel", "layer_2/mixing/bias",
+                 "virtual_node_1/fc_layer/MaskedBatchNorm_0/scale",
+                 "embedding_pos_enc/kernel"):
+        assert path in flat, path
+    assert "virtual_node_1/fc_layer/MaskedBatchNorm_0/var" in \
+        flatten(batch_stats)
+    _assert_tree(model.named_parameters(), flat, 0, 0)
+    _assert_tree(model.named_buffers(), flatten(batch_stats), 0, 0)
+    with pytest.raises(KeyError):
+        load_jax_params(model, {k: v for k, v in params.items()
+                                if k != "virtual_node_0"}, batch_stats)
+
+
+def test_flatten_drops_only_the_linear_params_holder():
+    """A sole FCLayer_0 of exactly {kernel, bias} is the LinearParams holder
+    and goes; a sole FCLayer_0 that holds anything else (the batch_stats of
+    a 2-layer MLP with a batch norm in its middle layer) stays."""
+    one = np.ones(2, np.float32)
+    assert set(flatten({"pretrans": {"FCLayer_0": {"kernel": one,
+                                                   "bias": one}}})) == \
+        {"pretrans/kernel", "pretrans/bias"}
+    assert set(flatten({"posttrans": {"FCLayer_0": {"MaskedBatchNorm_0": {
+        "mean": one, "var": one}}}})) == {
+            "posttrans/FCLayer_0/MaskedBatchNorm_0/mean",
+            "posttrans/FCLayer_0/MaskedBatchNorm_0/var"}
+
+
 def test_zinc_forward_loss_grads_bn_match_reference(setup):
     jb, tb, jmodel, jloss, params, batch_stats, tcfg = setup
     model, tloss = _port_model(tcfg, params, batch_stats)
@@ -166,7 +217,7 @@ def test_zinc_adam_step_matches_reference_trainer(setup):
                  rtol=1e-4, atol=1e-6)
 
 
-@pytest.mark.parametrize("field,value", [("type_net", "towers"),
+@pytest.mark.parametrize("field,value", [("pretrans_layers", 2),
                                          ("edge_feat", True),
                                          ("aggregators", "mean dir1-0.1"),
                                          ("compute_dtype", "bfloat16"),

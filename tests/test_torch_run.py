@@ -1,7 +1,10 @@
-"""The port's entry point: plateau schedule parity, an end-to-end CPU run, device
-selection, rejected options, and import isolation from JAX."""
+"""The port's entry point: plateau schedule parity, end-to-end CPU runs
+(ZINC, and the towers, virtual-node and augmented paths), device selection,
+rejected options, a `data` block's pos_enc_dim, and import isolation from
+JAX."""
 from __future__ import annotations
 
+import json
 import math
 import subprocess
 import sys
@@ -9,17 +12,34 @@ from pathlib import Path
 
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from dgn_tpu.train.optim import ReduceLROnPlateau as JPlateau
 
 from dgn_tpu_torch import run as trun
+from dgn_tpu_torch.config import load_config
 from dgn_tpu_torch.train.optim import ReduceLROnPlateau as TPlateau
 
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
-CONFIG = str(REPO / "configs" / "molecules_graph_regression_DGN_ZINC.json")
+CONFIGS = REPO / "configs"
+CONFIG = str(CONFIGS / "molecules_graph_regression_DGN_ZINC.json")
 SMALL = ["--config", CONFIG, "--epochs", "1", "--synthetic_size", "32"]
+# (config, flags, metric): chip_smoke.py's zinc-towers, pcba-vn and
+# cifar10-aug paths at a tiny size
+NEW_PATHS = {
+    "zinc-towers": ("molecules_graph_regression_DGN_ZINC.json",
+                    ["--type_net", "towers", "--flip", "True",
+                     "--pos_enc_dim", "5", "--synthetic_size", "32"], "mae"),
+    "pcba-vn": ("molecules_graph_classification_DGN_PCBA.json",
+                ["--virtual_node", "mean", "--synthetic_size", "64",
+                 "--batch_size", "32", "--micro_batches", "2"], "ap"),
+    "cifar10-aug": ("superpixels_graph_classification_DGN_CIFAR10.json",
+                    ["--augmentation", "15", "--distortion", "0.1", "--flip",
+                     "True", "--posttrans_layers", "2", "--in_feat_dropout",
+                     "0.1", "--synthetic_size", "16"], "acc"),
+}
 
 
 @pytest.mark.parametrize("patience", [0, 2])
@@ -50,12 +70,46 @@ def test_run_without_gpu_refuses_cpu_fallback():
 
 @pytest.mark.parametrize("flags", [["--layout", "flat"],
                                    ["--n_buckets", "2"],
-                                   ["--flip", "true"],
+                                   ["--edge_feat", "true"],
                                    ["--compute_dtype", "bfloat16"],
                                    ["--dataset", "COLLAB"]])
 def test_run_rejects_unported_options(flags):
     with pytest.raises(NotImplementedError):
         trun.run(SMALL + ["--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("path", sorted(NEW_PATHS))
+def test_run_new_path_one_epoch_on_cpu(path, capsys):
+    name, flags, metric = NEW_PATHS[path]
+    with threadpool_limits(limits=1, user_api="blas"):   # superpixel eigs
+        report = trun.run(["--config", str(CONFIGS / name), "--epochs", "1",
+                           "--device", "cpu"] + flags)
+    assert report["epochs_run"] == 1 and report["device"] == "cpu"
+    for split in ("train", "val", "test"):
+        assert math.isfinite(report["final"][split][metric])
+        assert math.isfinite(report["final"][split]["loss"])
+    assert f"final {metric}" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name,k_eig", [
+    ("SBMs_node_clustering_DGN_PATTERN.json", 5),
+    ("superpixels_graph_classification_DGN_CIFAR10.json", 7)],
+    ids=["sbm", "superpixels"])
+def test_data_block_pos_enc_dim_reaches_the_model(name, k_eig, tmp_path):
+    """A `data` block's pos_enc_dim builds the model's embedding_pos_enc,
+    as dgn_tpu/run.py copies it into the net config (it was dropped
+    silently for SBM and superpixels)."""
+    raw = json.loads((CONFIGS / name).read_text())
+    raw["data"] = {"pos_enc_dim": 9, "synthetic_size": 16}
+    config = tmp_path / "config.json"
+    config.write_text(json.dumps(raw))
+    cfg = load_config(str(config))
+    assert cfg.net_params.pos_enc_dim == 0 and cfg.data.pos_enc_dim == 9
+    with threadpool_limits(limits=1, user_api="blas"):
+        _, model, _, _, _ = trun.prepare(cfg, "cpu")
+    assert model.cfg.pos_enc_dim == 9
+    assert model.embedding_pos_enc.kernel.shape == (k_eig - 1,
+                                                    cfg.net_params.hidden_dim)
 
 
 def test_import_leaves_jax_out():
