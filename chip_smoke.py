@@ -21,16 +21,26 @@ and no device line.  Phases, each of which fails the script:
    The extremes pair is also held against its plain version at F = 14, the
    width a towers layer gives each of its 5 towers at HIV's hidden 70;
 4. training, once per path: the port's entry point (dgn_tpu_torch.run)
-   trains each config of PATHS at full width on the card: ZINC, HIV,
-   PATTERN, CIFAR10, PCBA at its batch of 2048 in 2 micro-batches, and
-   with the options of the reference's own training scripts: ZINC with 5 towers,
-   flip and a positional encoding (zinc-towers), PCBA with the virtual node
-   (pcba-vn), CIFAR10 with rotation, distortion, flip, a 2-layer posttrans
-   and input dropout (cifar10-aug).  Every kernel launch counter is set to
-   0 just before and read just after each run, and checked against the
-   count the path's loaders and tower count imply; then each path's step
-   time and device activity, and one step from identical weights and
-   identical augmentation draws on the CPU and on the card.
+   trains each of the eleven configs of PATHS at full width on the card:
+   ZINC, HIV, PATTERN, CIFAR10, PCBA at its batch of 2048 in 2
+   micro-batches, and with the options of the reference's own training
+   scripts: ZINC with 5 towers, flip and a positional encoding
+   (zinc-towers), PCBA with the virtual node (pcba-vn), CIFAR10 with
+   rotation, distortion, flip, a 2-layer posttrans and input dropout
+   (cifar10-aug), ZINC with bond-type edge features (zinc-edge), the same
+   with a 2-layer per-edge pretrans and a 2-layer posttrans
+   (zinc-pretrans), and HIV on the per-edge message path (hiv-per-edge,
+   --decompose False).  Every kernel launch counter is set to 0 just
+   before and read just after each run, and checked against the count the
+   path's loaders, tower count and edge stage imply (no adjacency build
+   where the config does not decompose); then each path's step time and
+   device activity, and one step from identical weights and identical
+   augmentation draws on the CPU and on the card (with the entries that
+   fall on different sides of a kink, a max/min edge, abs or a ReLU, on
+   the two sides: where gradients may hop).  On the ZINC batch, one
+   more such step with the softmax aggregators (`mean dir1-0.1
+   dir1-neg-0.1`), decomposed (their weights go through
+   build_pair_adjacency) and per-edge.
 
 Prints a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`.  Needs no network; starts no process other
@@ -39,6 +49,7 @@ than nvidia-smi and nvcc, and waits for each.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -66,6 +77,7 @@ class TrainPath(NamedTuple):
 
 
 ZINC = "molecules_graph_regression_DGN_ZINC.json"
+HIV = "molecules_graph_classification_DGN_HIV.json"
 PCBA = "molecules_graph_classification_DGN_PCBA.json"
 CIFAR10 = "superpixels_graph_classification_DGN_CIFAR10.json"
 # PATTERN's 4096 gives 1024 train graphs (load_sbm keeps n // 4), PCBA's
@@ -73,7 +85,7 @@ CIFAR10 = "superpixels_graph_classification_DGN_CIFAR10.json"
 # are tests/test_train.py's: the repo has no published setting for them.
 PATHS = (
     TrainPath("zinc", ZINC, 0, 1024),
-    TrainPath("hiv", "molecules_graph_classification_DGN_HIV.json", 4, 1024),
+    TrainPath("hiv", HIV, 4, 1024),
     TrainPath("pattern", "SBMs_node_clustering_DGN_PATTERN.json", 0, 4096),
     TrainPath("cifar10", CIFAR10, 0, 1024),
     TrainPath("pcba", PCBA, 4, 4096),
@@ -84,7 +96,13 @@ PATHS = (
     TrainPath("cifar10-aug", CIFAR10, 0, 1024,
               ("--augmentation", "15", "--distortion", "0.1", "--flip",
                "True", "--posttrans_layers", "2", "--in_feat_dropout",
-               "0.1")))
+               "0.1")),
+    TrainPath("zinc-edge", ZINC, 0, 1024, ("--edge_feat", "True")),
+    TrainPath("zinc-pretrans", ZINC, 0, 1024,
+              ("--edge_feat", "True", "--pretrans_layers", "2",
+               "--posttrans_layers", "2")),
+    TrainPath("hiv-per-edge", HIV, 4, 1024, ("--decompose", "False")))
+SOFTMAX_AGGREGATORS = "mean dir1-0.1 dir1-neg-0.1"
 EPOCHS = 1
 MIN_STEPS = 24           # timed train steps per path (the first 3 dropped)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -121,7 +139,6 @@ def timed(torch, fn, iters: int = 20, warmup: int = 3):
     records, so host time between launches does not count.  call ms: CUDA
     events around back-to-back calls, host overhead included (a call whose
     device work is shorter than its launch reads the launch)."""
-    from torch.profiler import ProfilerActivity, profile
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
@@ -133,15 +150,26 @@ def timed(torch, fn, iters: int = 20, warmup: int = 3):
     end.record()
     torch.cuda.synchronize()
     call_ms = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-    events = device_events(torch, prof)
-    if not events:
-        fail("torch.profiler recorded no device activity")
+    events = profiled(torch, lambda: [fn(i) for i in range(iters)])
     return sum(e.device_time for e in events) / 1e3 / iters, call_ms
+
+
+def profiled(torch, run):
+    """The device events of run() under torch.profiler.  A window whose
+    trace comes back without any device activity is run again, twice at
+    most, before the script fails."""
+    from torch.profiler import ProfilerActivity, profile
+    for window in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = device_events(torch, prof)
+        if events:
+            return events
+        print(f"torch.profiler recorded no device activity in window "
+              f"{window + 1} of 3")
+    fail("torch.profiler recorded no device activity")
 
 
 def multiblock_graphs(np, GraphData, n_graphs: int = 4, seed: int = 11):
@@ -210,6 +238,14 @@ def share_datasets() -> None:
 def towers_of(net) -> int:
     """Towers per DGN layer of a net config; each runs its own max/min."""
     return net.towers if net.type_net == "towers" else 1
+
+
+def adjacency_builds(net) -> int:
+    """Adjacency builds per forward pass of a net config: 1 where it takes
+    the decomposed edge stage (decompose on and a linear pretrans, which
+    the simple layer always has), 0 on the per-edge message path."""
+    return int(net.decompose and (net.type_net == "simple"
+                                  or net.pretrans_layers == 1))
 
 
 def path_argv(path: TrainPath) -> list:
@@ -577,7 +613,8 @@ def drive_path(torch, path: TrainPath):
     """Train the path's config through the user's entry point with every launch
     counter at 0 just before; fails unless the launches are what the path
     must make.  Per packed (micro-)batch: one adjacency build per forward
-    pass whatever the tower count (each train step, each of the shuffled
+    pass whatever the tower count where the config decomposes, none where
+    it does not (each train step, each of the shuffled
     train loader's in the final eval, and each cached val/test batch once,
     as the trainer keeps their edge contexts), the extremes forward once per
     max/min layer and tower per forward pass, and their backward once per
@@ -604,7 +641,9 @@ def drive_path(torch, path: TrainPath):
     evals = units["val"] + units["test"]
     forwards = steps + EPOCHS * evals + units["train"] + evals
     n_ext = path.extremes_layers * towers_of(model.cfg)
-    expected = {"build_pair_adjacency": steps + units["train"] + evals,
+    n_adj = adjacency_builds(model.cfg)
+    expected = {"build_pair_adjacency":
+                n_adj * (steps + units["train"] + evals),
                 "segment_extremes_fwd": n_ext * forwards,
                 "segment_extremes_bwd": n_ext * steps}
     print(f"path {path.key}: dgn_tpu_torch.run {' '.join(argv)} -> "
@@ -621,7 +660,6 @@ def step_profile(torch, trainer, batches, label: str, per_micro: dict):
     """Step time over steady steps, then device activity in a profiled
     window; checks the launches each step makes (per_micro times the
     step's micro-batches)."""
-    from torch.profiler import ProfilerActivity, profile
     counters = launch_counters()
     before = {k: c.launches for k, c in counters.items()}
     micros = sum(len(gb) if isinstance(gb, list) else 1 for gb in batches)
@@ -644,12 +682,8 @@ def step_profile(torch, trainer, batches, label: str, per_micro: dict):
           f"steps (min {min(steady):.3f}, max {max(steady):.3f}; first "
           f"{times[0]:.1f} ms)")
     n_prof = 5
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for gb in batches[:n_prof]:
-            trainer.train_step(gb)
-        torch.cuda.synchronize()
-    events = device_events(torch, prof)
+    events = profiled(torch, lambda: [trainer.train_step(gb)
+                                      for gb in batches[:n_prof]])
     by_name = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3 / n_prof
@@ -659,6 +693,98 @@ def step_profile(torch, trainer, batches, label: str, per_micro: dict):
           f"the median step (the device idles the rest); top by device time:")
     for name, t_ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {t_ms:.4f} ms/step  {name[:100]}")
+
+
+KINKS = ("abs", "relu", "leaky_relu")
+
+
+@contextlib.contextmanager
+def recording_kinks(torch, calls: list):
+    """Appends, in call order, the CPU copies of the inputs of every call
+    made inside the block where a gradient can hop: segment_extremes
+    ("max/min": the values, global dst, edge mask, node count) and abs,
+    relu and leaky_relu (their input)."""
+    from torch.overrides import TorchFunctionMode
+    from dgn_tpu_torch.ops import extremes, mxu
+    inner = extremes.segment_extremes
+
+    def spy(ge, layout, edge_mask, num_nodes):
+        dst = (layout.edge_chunk_dst.long().repeat_interleave(mxu.TILE)
+               * mxu.TILE + layout.local_dst.long())
+        calls.append(("max/min", ge.detach().cpu(), dst.cpu(),
+                      edge_mask.cpu(), num_nodes))
+        return inner(ge, layout, edge_mask, num_nodes)
+
+    class Inputs(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            name = getattr(func, "__name__", "")
+            if name in KINKS:
+                calls.append((name, args[0].detach().cpu()))
+            return func(*args, **(kwargs or {}))
+
+    extremes.segment_extremes = spy
+    try:
+        with Inputs():
+            yield
+    finally:
+        extremes.segment_extremes = inner
+
+
+def extremes_moved(torch, a, b, dst, mask, n):
+    """(node, feature) pairs whose max or min edge differs between the CPU's
+    values a and the card's b, with the largest gap between the CPU's two
+    highest (lowest) values among them (0 at a tie)."""
+    real = mask.nonzero().squeeze(1)
+    a, b, d = a[real], b[real], dst[real]
+    idx = d[:, None].expand_as(a)
+
+    def top(v):
+        return v.new_full((n, v.shape[1]), float("-inf")).scatter_reduce(
+            0, idx, v, "amax", include_self=False)
+
+    count, gap_max = 0, 0.0
+    for sign in (1.0, -1.0):            # max, then min as the max of -v
+        va, vb = sign * a, sign * b
+        ta = top(va)
+        wa = va == ta.index_select(0, d)
+        wb = vb == top(vb).index_select(0, d)
+        moved = torch.zeros(ta.shape, dtype=torch.int32).index_add_(
+            0, d, (wa != wb).int()) > 0
+        n_top = torch.zeros(ta.shape, dtype=torch.int32).index_add_(
+            0, d, wa.int())
+        gap = torch.where(n_top > 1, 0.0,
+                          ta - top(torch.where(wa, float("-inf"), va)))
+        count += int(moved.sum())
+        if moved.any():
+            gap_max = max(gap_max, gap[moved].max().item())
+    return count, gap_max, (a - b).abs().max().item()
+
+
+def kinks_crossed(torch, cpu_calls, card_calls) -> str:
+    """Per kind of call, over the CPU step's calls and the card's in call
+    order: the entries where the two sides fall on different sides of the
+    kink (another max/min edge; another sign at abs and the relus), the
+    largest CPU distance from the kink among them (top-two gap; |input|),
+    and the largest difference of the two sides' inputs."""
+    if [c[0] for c in cpu_calls] != [c[0] for c in card_calls]:
+        return "the two steps made different calls"
+    out = {}
+    for ca, cb in zip(cpu_calls, card_calls):
+        kind, a, b = ca[0], ca[1], cb[1]
+        if kind == "max/min":
+            crossed, near, diff = extremes_moved(torch, a, b, *ca[2:])
+        else:
+            far = (a > 0) != (b > 0)
+            if kind == "abs":
+                far |= (a < 0) != (b < 0)
+            crossed = int(far.sum())
+            near = a[far].abs().max().item() if crossed else 0.0
+            diff = (a - b).abs().max().item()
+        n, c, g, d = out.get(kind, (0, 0, 0.0, 0.0))
+        out[kind] = (n + 1, c + crossed, max(g, near), max(d, diff))
+    return "; ".join(
+        f"{kind} {c} in {n} calls (CPU distance <= {g:.3g}, max |input "
+        f"diff| {d:.3g})" for kind, (n, c, g, d) in out.items())
 
 
 def cpu_vs_card(torch, task, cfg, ds, params, batch):
@@ -676,8 +802,11 @@ def cpu_vs_card(torch, task, cfg, ds, params, batch):
     micros = batch if isinstance(batch, list) else [batch]
     aug = draw_augmentation(micros[0].eig.shape, params,
                             torch.Generator().manual_seed(41))
-    l_cpu, s_cpu = t_cpu.train_step(batch, aug)
-    l_gpu, s_gpu = t_gpu.train_step(batch, aug)
+    cpu_calls, card_calls = [], []
+    with recording_kinks(torch, cpu_calls):
+        l_cpu, s_cpu = t_cpu.train_step(batch, aug)
+    with recording_kinks(torch, card_calls):
+        l_gpu, s_gpu = t_gpu.train_step(batch, aug)
     if not isinstance(batch, list):
         s_cpu, s_gpu = [s_cpu], [s_gpu]
     pairs = []
@@ -697,36 +826,71 @@ def cpu_vs_card(torch, task, cfg, ds, params, batch):
     # own difference and the count of entries that moved apart
     rest = max(v for k, v in d_param.items()
                if not k.endswith("posttrans.bias"))
-    grads = [(a.grad, b.grad.cpu()) for a, b in zip(model_cpu.parameters(),
-                                                    model_gpu.parameters())]
-    d_grad = max((a - b).abs().max().item() for a, b in grads)
-    g_max = max(a.abs().max().item() for a, _ in grads)
+    # and the entries Adam moved apart: how many of them got gradients of
+    # opposite signs on the two sides, and how large the CPU's was there
+    grads = {name: (a.grad, b.grad.cpu()) for (name, a), b in zip(
+        model_cpu.named_parameters(), model_gpu.parameters())}
+    d_grads = {k: (a - b).abs().max().item() for k, (a, b) in grads.items()}
+    worst_grad = max(d_grads, key=d_grads.get)
+    g_max = max(a.abs().max().item() for a, _ in grads.values())
     lr = params.init_lr
-    apart = sum(int(((a.detach() - b.detach().cpu()).abs() > 0.1 * lr).sum())
-                for a, b in zip(model_cpu.parameters(),
-                                model_gpu.parameters()))
+    apart = flipped = 0
+    g_apart = 0.0
+    for (name, a), b in zip(model_cpu.named_parameters(),
+                            model_gpu.parameters()):
+        far = (a.detach() - b.detach().cpu()).abs() > 0.1 * lr
+        ga, gb = grads[name]
+        apart += int(far.sum())
+        flipped += int((far & (ga.sign() != gb.sign())).sum())
+        if far.any():
+            g_apart = max(g_apart, ga[far].abs().max().item())
     n_param = sum(p.numel() for p in model_cpu.parameters())
     print(f"cpu vs cuda, one {task} step over {len(micros)} packed "
           f"batch(es), augmentation {'on' if aug else 'off'}: "
           f"|loss diff| {d_loss:.3g} (loss {float(l_cpu):.6f}), "
-          f"max |score diff| {d_scores:.3g}, max |grad diff| {d_grad:.3g} "
-          f"(max |grad| {g_max:.3g}), max |param diff after Adam| "
+          f"max |score diff| {d_scores:.3g}, max |grad diff| "
+          f"{d_grads[worst_grad]:.3g} ({worst_grad}; max |grad| "
+          f"{g_max:.3g}), max |param diff after Adam| "
           f"{d_param[worst]:.3g} ({worst}; {rest:.3g} without the posttrans "
-          f"biases; {apart} of {n_param} entries apart by more than lr/10)")
+          f"biases; {apart} of {n_param} entries apart by more than lr/10, "
+          f"{flipped} of them with gradients of opposite signs, CPU |grad| "
+          f"<= {g_apart:.3g} there)")
+    print(f"  kinks crossed between the CPU and the card: "
+          f"{kinks_crossed(torch, cpu_calls, card_calls)}")
     if not (all(torch.allclose(b, a, rtol=STEP_RTOL, atol=STEP_ATOL)
                 for a, b in pairs)
             and math.isclose(float(l_gpu), float(l_cpu), rel_tol=STEP_RTOL)):
         fail(f"the card's {task} step disagrees with the CPU step")
 
 
+def softmax_check(torch, task, net, ds, params, batch):
+    """The CPU-vs-card step with the softmax aggregators, once decomposed
+    (one build_pair_adjacency launch on the card, its weights the softmax
+    families) and once on the per-edge path (none)."""
+    counter = launch_counters()["build_pair_adjacency"]
+    for decompose in (True, False):
+        before = counter.launches
+        cpu_vs_card(torch, task, dataclasses.replace(
+            net, aggregators=SOFTMAX_AGGREGATORS, decompose=decompose,
+            dropout=0.0, in_feat_dropout=0.0), ds, params, batch)
+        built = counter.launches - before
+        print(f"softmax check ({SOFTMAX_AGGREGATORS}, decompose "
+              f"{decompose}): build_pair_adjacency launched {built} times")
+        if built != int(decompose):
+            fail(f"the softmax step with decompose {decompose} launched "
+                 f"build_pair_adjacency {built} times")
+
+
 def training_phase(torch):
     """Every path of PATHS through the entry point, each path's step, and
-    each path's CPU-vs-card step; returns {path: launches}."""
-    out = {}
+    each path's CPU-vs-card step (and the softmax check on ZINC's batch);
+    returns ({path: launches}, {path: net config})."""
+    out, nets = {}, {}
     for path in PATHS:
         key = path.key
         report, out[key] = drive_path(torch, path)
         ds, model, _, trainer, loaders, cfg = _PREPARED.pop(key)
+        nets[key] = model.cfg
         final = report["final"]
         if not all(math.isfinite(v) for split in ("train", "val", "test")
                    for v in final[split].values()):
@@ -742,14 +906,16 @@ def training_phase(torch):
             f"dropout {net.dropout}, n_pad={train.n_pad} e_pad={train.e_pad} "
             f"pairs={train.pair_pad}{', ' if path.flags else ''}"
             f"{' '.join(path.flags)}",
-            {"build_pair_adjacency": 1, "segment_extremes_fwd": n_ext,
-             "segment_extremes_bwd": n_ext})
+            {"build_pair_adjacency": adjacency_builds(net),
+             "segment_extremes_fwd": n_ext, "segment_extremes_bwd": n_ext})
         # dropout 0: the CPU and CUDA generators draw different masks
         cpu_vs_card(torch, cfg.task, dataclasses.replace(
             model.cfg, dropout=0.0, in_feat_dropout=0.0), ds, p, batches[0])
+        if key == "zinc":
+            softmax_check(torch, cfg.task, model.cfg, ds, p, batches[0])
         del ds, model, trainer, loaders, batches
         torch.cuda.empty_cache()
-    return out
+    return out, nets
 
 
 def main() -> None:
@@ -794,7 +960,7 @@ def main() -> None:
         print(json.dumps({"kernels": kernels}))
         print(f"card: {card_line()}")
         return
-    launches = training_phase(torch)
+    launches, nets = training_phase(torch)
     # `launches` is the kernel's count on the path whose shape the entry
     # timed ("path"); the counts of every path stand beside it
     for kern in kernels:
@@ -802,10 +968,16 @@ def main() -> None:
         kern["launches"] = launches[kern["path"]][counter]
         kern["launches_by_path"] = {p: c[counter] for p, c in launches.items()}
         for path in PATHS:
-            runs = counter == "build_pair_adjacency" or path.extremes_layers
-            if runs and kern["launches_by_path"][path.key] <= 0:
+            runs = (adjacency_builds(nets[path.key])
+                    if counter == "build_pair_adjacency"
+                    else path.extremes_layers)
+            n = kern["launches_by_path"][path.key]
+            if runs and n <= 0:
                 fail(f"kernel {counter} was not launched on the {path.key} "
                      "path")
+            if not runs and n != 0:
+                fail(f"kernel {counter} was launched {n} times on the "
+                     f"{path.key} path, which must not launch it")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@
 `load_jax_params(model, params, batch_stats)` takes the trees as nested
 dicts of numpy arrays, as `model.init(...)` of `dgn_tpu` gives them
 (`layer_i/pretrans/FCLayer_0/kernel`, `layer_i/batchnorm_h/scale`,
-`embedding_h/embedding`, `MLP_layer/Linear_j/kernel`, and batch_stats
+`embedding_h/embedding`, the edge encoder's `embedding_e/embedding`,
+`embedding_e/{kernel,bias}` or `embedding_e/bond/emb_i`,
+`MLP_layer/Linear_j/kernel`, and batch_stats
 `layer_i/batchnorm_h/{mean,var}`).  The port's modules carry the same names
 and layouts (kernels [in, out]), so the mapping is by name: a torch entry
 `a.b.c` reads the flax path `a/b/c`.  One level has no torch counterpart:
@@ -11,7 +13,10 @@ the reference's LinearParams holds its kernel and bias in a child
 `FCLayer_0` that is its only child, where the port's LinearParams holds
 them itself.  So a `FCLayer_0` that is the only child of its parent and
 holds exactly {kernel, bias} is dropped; one with siblings (an MLP's
-`FCLayer_0`, `FCLayer_1`, ...) or with other entries is kept.  Every
+`FCLayer_0`, `FCLayer_1`, ..., as a per-edge pretrans of 2 layers has) or
+with other entries is kept.  A one-layer MLP (the per-edge pretrans at
+pretrans_layers = 1) has the same sole `FCLayer_0` and maps onto the
+port's LinearParams.  Every
 entry must match in both directions, with equal shapes, or this raises.
 """
 from __future__ import annotations

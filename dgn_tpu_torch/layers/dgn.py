@@ -1,34 +1,52 @@
-"""The DGN layers and the virtual node, decomposed edge stage (counterpart of
-`dgn_tpu/layers/dgn.py`: DGNLayerSimple, DGNLayerComplex, DGNTower,
-DGNLayerTower, VirtualNode, make_dgn_layer).
+"""The DGN layers and the virtual node (counterpart of `dgn_tpu/layers/dgn.py`:
+DGNLayerSimple, DGNLayerComplex, DGNTower, DGNLayerTower, VirtualNode,
+make_dgn_layer).
 
-Complex: with a linear pretrans over [h_src || h_dst] the per-edge message
-splits as msg_e = g[src_e] + q[dst_e] with g = h @ W1 and q = h @ W2 + b.
-Simple: no pretrans, the message is h[src], so g = h and q = 0.  The
-aggregators run on that form (ops/aggregators.aggregate_decomposed).  A
+Each layer takes one of two edge stages, as dgn_tpu decides it: the
+decomposed one when the EdgeContext the model attaches carries weight
+families (ctx.decomposed) and the pretrans is linear, else the per-edge
+message path.
+
+Decomposed.  Complex: with a linear pretrans over [h_src || h_dst (|| e)]
+the per-edge message splits as msg_e = g[src_e] + q[dst_e] (+ c_e) with
+g = h @ W1, q = h @ W2 + b and c = e @ W3.  Simple: no pretrans, the
+message is h[src], so g = h and q = 0.  The aggregators run on that form
+(ops/aggregators.aggregate_decomposed).
+
+Per-edge.  Simple: msg = h[src].  Complex and tower: the pretrans
+(LinearParams when pretrans_layers = 1, else an MLP of pretrans_layers
+FCLayers at width in_dim) on [h[src] || h[dst] (|| e)] over every padded
+edge; pad edges' messages reach no reduction (ops/aggregators.aggregate).
+A complex layer or tower with pretrans_layers > 1 always takes this path.
+
+Both paths then run the same posttrans on the unscaled aggregate.  A
 linear posttrans (posttrans_layers = 1) over [h_in || scaled copies of the
 aggregate] (complex) or over the scaled copies alone (simple) is applied
 without materialising the concat (_fused_posttrans); a deeper one is
-apply_scalers -> (concat h_in, complex) -> MLP.
+apply_scalers -> (concat h_in, complex) -> MLP.  On the per-edge path
+dgn_tpu runs apply_scalers -> concat -> MLP(layers=1), whose parameters are
+LinearParams'; this port keeps _fused_posttrans there, which agrees with it
+to rounding.
 
 Layer order: posttrans -> graph norm (h * snorm_n) -> masked BatchNorm ->
 ReLU -> residual -> dropout.  A tower is a complex layer without the ReLU
 and the residual.  The towers layer runs `towers` of them, each on its own
-slice of the input (divide_input) or on all of it, concatenates their
-outputs, mixes them with a LeakyReLU FCLayer and adds the residual.  Parity
-quirks kept on purpose: scalers apply only when len(scalers) > 1
-(reference nets/dgn_layer.py:95-96), the residual only when in_dim ==
-out_dim (:76-77), and the mixing layer only when towers > 1 (:313-316).
-Every layer reads the one EdgeContext the model attaches to the batch, so
-one adjacency build serves every tower of every layer.
+slice of the input (divide_input) or on all of it and each on the whole
+edge embedding, concatenates their outputs, mixes them with a LeakyReLU
+FCLayer and adds the residual.  Parity quirks kept on purpose: scalers
+apply only when len(scalers) > 1 (reference nets/dgn_layer.py:95-96), the
+residual only when in_dim == out_dim (:76-77), the mixing layer only when
+towers > 1 (:313-316), and the simple layer ignores edge features.  Every
+layer reads the one EdgeContext the model attaches to the batch, so one
+adjacency build serves every tower of every layer.
 
 The virtual node (reference nets/dgn_layer.py:12-49) pools each graph's
 nodes (mean, sum or logsum), adds the graph's state vn_h, runs an FCLayer
 (ReLU, dropout, masked BatchNorm over the real graphs), adds the residual to
 vn_h and the new vn_h to every node of its graph.
 
-Not ported yet: pretrans_layers > 1 (the per-edge message path) and edge
-features.
+Not ported yet: the flat layout, bf16 (compute_dtype) and the sync-BN axis
+(bn_axis).
 """
 from __future__ import annotations
 
@@ -42,13 +60,16 @@ from ..nn import MLP, FCLayer, LinearParams, MaskedBatchNorm, dropout
 from ..ops import aggregators as agg_ops
 from ..ops import mxu
 from ..ops import scalers as scaler_ops
+from ..ops.segment import gather
 
 
-def _linear_pretrans_parts(kernel, bias, h):
-    """(g_node = h @ W1, q_node = h @ W2 + b) such that the linear pretrans
-    of [h_src || h_dst] is g_node[src] + q_node[dst]."""
+def _linear_pretrans_parts(kernel, bias, h, e):
+    """(g_node = h @ W1, q_node = h @ W2 + b, c_edge = e @ W3 or None) such
+    that the linear pretrans of [h_src || h_dst (|| e)] is
+    g_node[src] + q_node[dst] (+ c_edge)."""
     f = h.shape[-1]
-    return h @ kernel[:f], h @ kernel[f:2 * f] + bias
+    c_edge = None if e is None else e @ kernel[2 * f:]
+    return h @ kernel[:f], h @ kernel[f:2 * f] + bias, c_edge
 
 
 def _fused_posttrans(kernel, bias, h_in, h_agg, gb: GraphBatch,
@@ -88,8 +109,7 @@ class _DGNLayer(nn.Module):
                  graph_norm: bool, batch_norm: bool, residual: bool,
                  posttrans_layers: int, input_concat: bool):
         super().__init__()
-        self.aggregators = tuple(aggregators)
-        agg_ops.check_ported(self.aggregators)
+        self.aggregators = tuple(agg_ops.parse_names(aggregators))
         self.scalers = tuple(scalers)
         self.avg_d = avg_d
         self.dropout = dropout
@@ -131,8 +151,8 @@ class _DGNLayer(nn.Module):
 
 class DGNLayerSimple(_DGNLayer):
     """No pretrans, the message is h[src]; posttrans over the aggregate
-    alone (reference nets/dgn_layer.py:135-202), decomposed edge stage with
-    g = h and q = 0."""
+    alone (reference nets/dgn_layer.py:135-202): decomposed with g = h and
+    q = 0, or per-edge on msg = h[src].  Edge features are ignored."""
 
     def __init__(self, in_dim: int, out_dim: int, aggregators: Sequence[str],
                  scalers: Sequence[str], avg_d: Dict[str, float],
@@ -144,32 +164,55 @@ class DGNLayerSimple(_DGNLayer):
                          posttrans_layers, input_concat=False)
 
     def forward(self, gb: GraphBatch, h: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        agg = agg_ops.aggregate_decomposed(self.aggregators, gb.edge_ctx,
-                                           h, None, h, layout=gb.mxu)
+                generator: Optional[torch.Generator] = None,
+                e: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ctx = gb.edge_ctx
+        if ctx.decomposed:
+            agg = agg_ops.aggregate_decomposed(self.aggregators, ctx, h, None,
+                                               h, layout=gb.mxu)
+        else:
+            agg = agg_ops.aggregate(self.aggregators, ctx,
+                                    gather(h, ctx.src), h, layout=gb.mxu)
         return self._tail(gb, h, self._posttrans(gb, None, agg), generator)
 
 
 class DGNLayerComplex(_DGNLayer):
-    """Linear pretrans on [h_src || h_dst], input-concat posttrans
-    (reference nets/dgn_layer.py:52-132), decomposed edge stage."""
+    """Pretrans on [h_src || h_dst (|| e)], input-concat posttrans
+    (reference nets/dgn_layer.py:52-132).  edge_dim is the width of the
+    edge embedding e, 0 without edge features."""
 
     def __init__(self, in_dim: int, out_dim: int, aggregators: Sequence[str],
                  scalers: Sequence[str], avg_d: Dict[str, float],
                  generator: torch.Generator, dropout: float = 0.0,
                  graph_norm: bool = True, batch_norm: bool = True,
-                 residual: bool = True, posttrans_layers: int = 1):
+                 residual: bool = True, posttrans_layers: int = 1,
+                 edge_dim: int = 0, pretrans_layers: int = 1):
         super().__init__(in_dim, out_dim, aggregators, scalers, avg_d,
                          generator, dropout, graph_norm, batch_norm, residual,
                          posttrans_layers, input_concat=True)
-        self.pretrans = LinearParams(2 * in_dim, in_dim, generator)
+        self.pretrans_layers = pretrans_layers
+        width = 2 * in_dim + edge_dim
+        self.pretrans = (
+            LinearParams(width, in_dim, generator) if pretrans_layers == 1
+            else MLP(width, in_dim, in_dim, pretrans_layers, generator))
 
     def forward(self, gb: GraphBatch, h: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        g_node, q_node = _linear_pretrans_parts(self.pretrans.kernel,
-                                                self.pretrans.bias, h)
-        agg = agg_ops.aggregate_decomposed(self.aggregators, gb.edge_ctx,
-                                           g_node, q_node, h, layout=gb.mxu)
+                generator: Optional[torch.Generator] = None,
+                e: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ctx = gb.edge_ctx
+        if ctx.decomposed and self.pretrans_layers == 1:
+            g_node, q_node, c_edge = _linear_pretrans_parts(
+                self.pretrans.kernel, self.pretrans.bias, h, e)
+            agg = agg_ops.aggregate_decomposed(self.aggregators, ctx, g_node,
+                                               q_node, h, c_edge=c_edge,
+                                               layout=gb.mxu)
+        else:
+            z = [gather(h, ctx.src), gather(h, ctx.dst)]
+            z = torch.cat(z if e is None else z + [e], dim=-1)
+            msg = (z @ self.pretrans.kernel + self.pretrans.bias
+                   if self.pretrans_layers == 1 else self.pretrans(z))
+            agg = agg_ops.aggregate(self.aggregators, ctx, msg, h,
+                                    layout=gb.mxu)
         return self._tail(gb, h, self._posttrans(gb, h, agg), generator)
 
 
@@ -184,23 +227,27 @@ class DGNTower(DGNLayerComplex):
                  scalers: Sequence[str], avg_d: Dict[str, float],
                  generator: torch.Generator, dropout: float = 0.0,
                  graph_norm: bool = True, batch_norm: bool = True,
-                 posttrans_layers: int = 1):
+                 posttrans_layers: int = 1, edge_dim: int = 0,
+                 pretrans_layers: int = 1):
         super().__init__(in_dim, out_dim, aggregators, scalers, avg_d,
                          generator, dropout, graph_norm, batch_norm,
-                         residual=False, posttrans_layers=posttrans_layers)
+                         residual=False, posttrans_layers=posttrans_layers,
+                         edge_dim=edge_dim, pretrans_layers=pretrans_layers)
 
 
 class DGNLayerTower(nn.Module):
     """`towers` DGNTowers (children tower_0 ..), each on its slice of the
-    input when divide_input, then the LeakyReLU mixing FCLayer when
-    towers > 1, then the residual (reference nets/dgn_layer.py:279-325)."""
+    input when divide_input and on the whole edge embedding, then the
+    LeakyReLU mixing FCLayer when towers > 1, then the residual (reference
+    nets/dgn_layer.py:279-325)."""
 
     def __init__(self, in_dim: int, out_dim: int, aggregators: Sequence[str],
                  scalers: Sequence[str], avg_d: Dict[str, float],
                  generator: torch.Generator, towers: int = 5,
                  divide_input: bool = True, dropout: float = 0.0,
                  graph_norm: bool = True, batch_norm: bool = True,
-                 residual: bool = False, posttrans_layers: int = 1):
+                 residual: bool = False, posttrans_layers: int = 1,
+                 edge_dim: int = 0, pretrans_layers: int = 1):
         super().__init__()
         if divide_input and in_dim % towers != 0:
             raise ValueError("towers must divide in_dim when divide_input")
@@ -214,16 +261,18 @@ class DGNLayerTower(nn.Module):
             self.add_module(f"tower_{t}", DGNTower(
                 self.input_tower, out_dim // towers, aggregators, scalers,
                 avg_d, generator, dropout=dropout, graph_norm=graph_norm,
-                batch_norm=batch_norm, posttrans_layers=posttrans_layers))
+                batch_norm=batch_norm, posttrans_layers=posttrans_layers,
+                edge_dim=edge_dim, pretrans_layers=pretrans_layers))
         self.mixing = (FCLayer(out_dim, out_dim, generator, "leakyrelu")
                        if towers > 1 else None)
 
     def forward(self, gb: GraphBatch, h: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                e: Optional[torch.Tensor] = None) -> torch.Tensor:
         w = self.input_tower
         outs = [getattr(self, f"tower_{t}")(
             gb, h[:, t * w:(t + 1) * w] if self.divide_input else h,
-            generator) for t in range(self.towers)]
+            generator, e) for t in range(self.towers)]
         h_out = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
         if self.mixing is not None:
             h_out = self.mixing(h_out, gb.node_mask)
@@ -264,12 +313,15 @@ class VirtualNode(nn.Module):
 
 def make_dgn_layer(type_net: str, **kw) -> nn.Module:
     """DGNLayer(type_net=...) dispatch (reference nets/dgn_layer.py:328);
-    the simple and complex layers take no towers or divide_input."""
+    the simple and complex layers take no towers or divide_input, and the
+    simple layer no edge_dim or pretrans_layers."""
     if type_net == "towers":
         return DGNLayerTower(**kw)
     kw.pop("towers", None)
     kw.pop("divide_input", None)
     if type_net == "simple":
+        kw.pop("edge_dim", None)
+        kw.pop("pretrans_layers", None)
         return DGNLayerSimple(**kw)
     if type_net == "complex":
         return DGNLayerComplex(**kw)

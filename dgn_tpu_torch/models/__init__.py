@@ -49,11 +49,12 @@ def sbm_model(cfg: DGNConfig, n_classes: int, generator: torch.Generator,
 
 def superpixels_model(cfg: DGNConfig, n_classes: int, in_dim: int,
                       generator: torch.Generator,
-                      pos_enc_in: Optional[int] = None
+                      pos_enc_in: Optional[int] = None, edge_in: int = 1
                       ) -> Tuple[DGNModel, LossFn]:
     """MNIST/CIFAR10 superpixels (reference
     superpixels_graph_classification/dgn_net.py): a Linear over the in_dim
-    float node features, the config's graph readout, CE."""
+    float node features (and, with edge_feat, one over the edge_in float
+    edge features), the config's graph readout, CE."""
     cfg = dataclasses.replace(cfg, node_encoder="linear",
                               edge_encoder="linear", n_out=n_classes)
 
@@ -61,8 +62,8 @@ def superpixels_model(cfg: DGNConfig, n_classes: int, in_dim: int,
         labels = gb.labels.squeeze(-1) if gb.labels.ndim > 1 else gb.labels
         return losses.cross_entropy(logits, labels, gb.graph_mask)
 
-    return DGNModel(cfg, generator, in_dim=in_dim,
-                    pos_enc_in=pos_enc_in), loss
+    return DGNModel(cfg, generator, in_dim=in_dim, pos_enc_in=pos_enc_in,
+                    edge_in=edge_in), loss
 
 
 def hiv_model(cfg: DGNConfig, generator: torch.Generator,

@@ -11,7 +11,19 @@ max, directional, directional_abs) -> MLPReadout per graph, or MLPReadout
 per node (readout "node", SBM).  The batch-constant EdgeContext (eig
 deltas, weight families, adjacency blocks) is built once per forward pass,
 from the batch's eig as it arrives (augmented in training), or reused when
-the batch arrives with one attached (the trainer's eval cache).
+the batch arrives with one attached (the trainer's eval cache).  It is
+decomposed when cfg.decompose and the pretrans is linear (the simple layer
+has none); otherwise it holds the eig deltas only, every layer takes the
+per-edge message path and no adjacency is built.
+
+With edge_feat, the edge encoder embeds gb.edge_feat once per forward pass
+and every layer gets the embedding e: `embedding` (ZINC bond types, an
+Embedding of num_edge_types rows), `linear` (superpixels, a Linear over the
+float feature, of width edge_in) or `bond` (HIV/PCBA, the OGB BondEncoder),
+each edge_dim wide.  The entry point sets edge_dim to hidden_dim for ZINC
+and superpixels when the config leaves it 0, as dgn_tpu/run.py does; for
+HIV/PCBA it stays the config's 0 unless --edge_dim is given, and the bond
+encoder then yields a zero-width e, as in dgn_tpu.
 
 The positional encoding is the batch's `pos_enc` where it carries one
 (ZINC stores eig[:, 1:P+1] of the loaded, unaugmented eig), else
@@ -20,8 +32,8 @@ min(P, k_eig - 1); flax infers it, here the caller passes it (pos_enc_in).
 
 `DGNConfig` keeps the reference's full field set so the same JSON configs
 load; `DGNModel` raises NotImplementedError for any value the port does not
-cover yet (edge features, pretrans_layers > 1 outside the simple layer,
-decompose=False, bf16, bn_axis, readout "none") instead of silently running
+cover yet (bf16 compute_dtype, the sync-BN bn_axis, readout "none"; the
+flat layout is refused by the entry point) instead of silently running
 something else.
 """
 from __future__ import annotations
@@ -37,7 +49,7 @@ from ..layers.dgn import VirtualNode, make_dgn_layer
 from ..nn import Embedding, Linear, MLPReadout, dropout
 from ..ops import aggregators as agg_ops
 from ..ops import scalers as scaler_ops
-from .encoders import AtomEncoder
+from .encoders import AtomEncoder, BondEncoder
 from .readout import graph_readout
 
 
@@ -90,22 +102,26 @@ def check_ported(cfg: DGNConfig) -> None:
         raise ValueError(f"unknown type_net {cfg.type_net!r}")
     if cfg.node_encoder not in ("embedding", "atom", "linear"):
         raise ValueError(f"unknown node_encoder {cfg.node_encoder!r}")
-    if cfg.pretrans_layers != 1 and cfg.type_net != "simple":
-        raise NotImplementedError(
-            f"pretrans_layers={cfg.pretrans_layers} on the {cfg.type_net} "
-            "layer is not ported yet (it takes the per-edge message path; "
-            "the port runs a linear pretrans)")
-    wanted = dict(edge_feat=False, bn_axis=None, compute_dtype=None,
-                  decompose=True)
-    for name, value in wanted.items():
-        if getattr(cfg, name) != value:
+    if cfg.edge_feat and cfg.edge_encoder not in ("embedding", "linear",
+                                                  "bond"):
+        raise ValueError(f"unknown edge_encoder {cfg.edge_encoder!r}")
+    for name in ("bn_axis", "compute_dtype"):
+        if getattr(cfg, name) is not None:
             raise NotImplementedError(
                 f"DGNConfig.{name}={getattr(cfg, name)!r} is not ported yet "
-                f"(the port runs {name}={value!r})")
+                f"(the port runs {name}=None)")
     if cfg.readout == "none":
         raise NotImplementedError("readout 'none' (raw node embeddings) is "
                                   "not ported yet")
-    agg_ops.check_ported(cfg.agg_names())
+    cfg.agg_names()             # KeyError for an unknown aggregator
+
+
+def decomposes(cfg: DGNConfig) -> bool:
+    """Whether the net takes the decomposed edge stage (dgn_tpu/models/
+    dgn_net.py:100-101): decompose on and a linear pretrans, which the
+    simple layer always has."""
+    return cfg.decompose and (cfg.type_net == "simple"
+                              or cfg.pretrans_layers == 1)
 
 
 def edge_context_for(gb: GraphBatch, cfg: DGNConfig) -> agg_ops.EdgeContext:
@@ -113,7 +129,7 @@ def edge_context_for(gb: GraphBatch, cfg: DGNConfig) -> agg_ops.EdgeContext:
     layout), not on the parameters, so fixed batches can reuse it."""
     return agg_ops.build_edge_context(
         gb.eig, gb.src, gb.dst, gb.edge_mask, gb.in_degree,
-        names=cfg.agg_names(), mxu_layout=gb.mxu, decomposed=True)
+        names=cfg.agg_names(), mxu_layout=gb.mxu, decomposed=decomposes(cfg))
 
 
 class DGNModel(nn.Module):
@@ -125,11 +141,13 @@ class DGNModel(nn.Module):
     convert.load_jax_params maps one tree onto the other.  in_dim is the
     float feature width the `linear` node encoder takes and pos_enc_in the
     positional encoding's width (flax infers both from the first batch;
-    here they come from the dataset, run.build_model)."""
+    here they come from the dataset, run.build_model).  edge_in is the
+    float edge feature width the `linear` edge encoder takes."""
 
     def __init__(self, cfg: DGNConfig, generator: torch.Generator,
                  in_dim: Optional[int] = None,
-                 pos_enc_in: Optional[int] = None):
+                 pos_enc_in: Optional[int] = None,
+                 edge_in: Optional[int] = None):
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
@@ -149,6 +167,16 @@ class DGNModel(nn.Module):
                                  "width of the batches' positional encoding")
             self.embedding_pos_enc = Linear(pos_enc_in, cfg.hidden_dim,
                                             generator)
+        if cfg.edge_feat:
+            if cfg.edge_encoder == "embedding":
+                self.embedding_e = Embedding(cfg.num_edge_types, cfg.edge_dim,
+                                             generator)
+            elif cfg.edge_encoder == "linear":
+                if edge_in is None:
+                    raise ValueError("the linear edge encoder needs edge_in")
+                self.embedding_e = Linear(edge_in, cfg.edge_dim, generator)
+            else:
+                self.embedding_e = BondEncoder(cfg.edge_dim, generator)
         self.use_vn = bool(cfg.virtual_node) \
             and cfg.virtual_node.lower() != "none"
         in_dim = cfg.hidden_dim
@@ -164,7 +192,9 @@ class DGNModel(nn.Module):
                 avg_d=avg_d, generator=generator, dropout=cfg.dropout,
                 graph_norm=cfg.graph_norm, batch_norm=cfg.batch_norm,
                 residual=cfg.residual, posttrans_layers=cfg.posttrans_layers,
-                towers=cfg.towers, divide_input=divide))
+                towers=cfg.towers, divide_input=divide,
+                edge_dim=cfg.edge_dim if cfg.edge_feat else 0,
+                pretrans_layers=cfg.pretrans_layers))
             if self.use_vn and not last:
                 self.add_module(f"virtual_node_{i}", VirtualNode(
                     cfg.hidden_dim, generator, dropout=cfg.dropout,
@@ -196,9 +226,10 @@ class DGNModel(nn.Module):
             pe = gb.pos_enc if gb.pos_enc is not None \
                 else gb.eig[:, 1:cfg.pos_enc_dim + 1]
             h = h + self.embedding_pos_enc(pe)
+        e = self.embedding_e(gb.edge_feat) if cfg.edge_feat else None
         vn_h = h.new_zeros((gb.num_graphs_padded, cfg.hidden_dim))
         for i in range(cfg.L):
-            h = getattr(self, f"layer_{i}")(gb, h, dropout_generator)
+            h = getattr(self, f"layer_{i}")(gb, h, dropout_generator, e)
             if self.use_vn and i < cfg.L - 1:
                 vn_h, h = getattr(self, f"virtual_node_{i}")(
                     gb, h, vn_h, dropout_generator)

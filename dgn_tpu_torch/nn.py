@@ -62,8 +62,8 @@ def _uniform(shape, bound: float, generator: torch.Generator) -> nn.Parameter:
 class LinearParams(nn.Module):
     """{kernel [in, out], bias [out]} of a linear layer whose computation
     lives in the caller: the decomposed DGN layer splits the pretrans kernel
-    across edge endpoints and folds the scalers into the posttrans kernel
-    (layers/dgn.py).  The reference nests these under a `FCLayer_0` holder
+    across edge endpoints, the per-edge one applies it to the edge rows,
+    and both fold the scalers into the posttrans kernel (layers/dgn.py).  The reference nests these under a `FCLayer_0` holder
     level, which convert.py drops."""
 
     def __init__(self, in_size: int, out_size: int,
@@ -185,7 +185,8 @@ class MLP(nn.Module):
     last at out_size with no activation; no dropout, no batch norm
     (reference nets/layers.py:120-155 as every DGN layer calls it).
     Children FCLayer_0 .. FCLayer_{layers-1}.  The DGN layers use it for
-    posttrans_layers > 1; a single linear layer is LinearParams there."""
+    pretrans_layers > 1 and posttrans_layers > 1; a single linear layer is
+    LinearParams there."""
 
     def __init__(self, in_size: int, hidden_size: int, out_size: int,
                  layers: int, generator: torch.Generator):

@@ -1,32 +1,47 @@
-"""DGN aggregators over linearly decomposed messages, on the block layout.
+"""DGN aggregators on the block layout (PyTorch counterpart of
+`dgn_tpu/ops/aggregators.py`).
 
-PyTorch counterpart of `dgn_tpu/ops/aggregators.py`, for the path the
-canonical ZINC model runs: a linear pretrans makes every per-edge message
-split as msg_e = g[src_e] + q[dst_e], and every directional weight is a
-function of the eig deltas alone, hence a batch constant.  So each
-aggregator becomes weighted sums of g over incoming edges plus node-local
-terms with per-destination weight totals:
+Two paths share the formulas below.
+
+Decomposed (`aggregate_decomposed`): a linear pretrans makes every per-edge
+message split as msg_e = g[src_e] + q[dst_e] (+ c_e with edge features),
+and every directional weight is a function of the eig deltas alone, hence
+a batch constant.  So each aggregator becomes weighted sums of g over
+incoming edges plus node-local terms with per-destination weight totals:
 
     sum_e w_e msg_e = S_w[v] + T_w[v] * q[v],   S_w = scatter(w * g[src])
 
 The weighted sums run as one batched dense product per layer against
 per-(src_block, dst_block) adjacency blocks (`mxu.pair_adj_matmul`), built
 once per forward pass by `build_edge_context` (`mxu.build_pair_adjacency`).
+The edge term c_e adds one scatter of c_e * w_e for every family
+(`mxu.weighted_segment_sums`).  With var or std and edge features,
+(g + c)^2 has a cross term, so the sums scatter ge = g[src] + c_e and ge^2
+instead.
+
+Per-edge (`aggregate`): the messages are per-edge tensors (a pretrans MLP
+deeper than one layer, or decompose=False).  The weighted-sum aggregators
+run in one `mxu.weighted_segment_sums` scatter, max/min through the
+extremes kernel pair on the messages, the softmax families through
+`segment.segment_softmax`.  Its context holds no weight families and no
+adjacency blocks: nothing is built for it but the eig deltas.
 
 Formulas (reference nets/aggregators.py:35-71), d_e = eig_u[k] - eig_v[k],
 S_k(v) = sum_{e->v} |d_e|:
   mean/sum/var/std   : plain reductions of the messages
-  max/min            : max_e msg_e = max_e g[src_e] + q[v], over the edge
-                       values ge = g[src] by the CUDA kernel pair
-                       (`ops/extremes.py`), 0 for nodes without an edge
+  max/min            : per-destination max/min of the messages by the CUDA
+                       kernel pair (`ops/extremes.py`), 0 for nodes without
+                       an edge (decomposed: of ge, plus q[v])
   dir{k}-av          : sum_e |d_e| / (S_k(v)+EPS) * msg_e
   dir{k}-dx          : | sum_e d_e msg_e - (sum_e d_e) h_v | / (S_k(v)+EPS)
   dir{k}-dx-no-abs   : same, without the abs
   dir{k}-dx-balanced : the relu(+d) and relu(-d) halves, each normalized
+  dir{k}-0.1 / -neg-0.1 : sum_e softmax_e(+-0.1 |d_e|) msg_e; the weights
+                       sum to 1 at a node with an edge, to 0 without one
 
 Not ported yet, and raising NotImplementedError rather than falling back:
-the softmax families (dir{k}-0.1, dir{k}-neg-0.1), edge features (c_edge),
-the flat layout and the edge-partitioned split.
+the flat layout (with its separate segment ops per aggregator) and the
+edge-partitioned split; bf16 inputs (compute_dtype) are not taken.
 """
 from __future__ import annotations
 
@@ -37,14 +52,14 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from . import extremes, mxu
-from .segment import EPS, gather, segment_sum
+from .segment import EPS, gather, segment_softmax, segment_sum
 
 _DIR_RE = re.compile(
     r"^dir(?P<k>\d+)-(?P<kind>av|smooth|dx|dx-no-abs|dx-balanced|0\.1|neg-0\.1)$")
 
 _PLAIN = ("mean", "sum", "max", "min", "std", "var")
-_PORTED_PLAIN = ("mean", "sum", "max", "min", "var", "std")
-_PORTED_DIR = ("av", "smooth", "dx", "dx-no-abs", "dx-balanced")
+# names the per-edge path reduces as weighted sums in one scatter
+_FUSABLE_DIR = ("av", "smooth", "dx", "dx-no-abs", "dx-balanced")
 
 
 @dataclasses.dataclass
@@ -52,19 +67,25 @@ class EdgeContext:
     """Batch-constant per-edge and per-node quantities shared by all layers.
 
     fam_w: {key: [E]} edge-mask-folded weights of each family ("one",
-    "abs{k}", "delta{k}", "pos{k}", "neg{k}"); fam_tot: {key: [N]} their
-    per-destination totals; adj: the [P, K, 128, 128] adjacency blocks of the
-    families in adj_keys order (None when no aggregator needs one)."""
+    "abs{k}", "delta{k}", "pos{k}", "neg{k}", "sm{k}+", "sm{k}-");
+    fam_tot: {key: [N]} their per-destination totals; adj: the
+    [P, K, 128, 128] adjacency blocks of the families in adj_keys order
+    (None when no aggregator needs one).  A per-edge context (decomposed
+    off) has fam_w and fam_tot None, adj None and adj_keys empty."""
     src: torch.Tensor
     dst: torch.Tensor
     edge_mask: torch.Tensor
     degree: torch.Tensor
     eig_delta: Optional[torch.Tensor]
     num_nodes: int
-    fam_w: Dict[str, torch.Tensor]
-    fam_tot: Dict[str, torch.Tensor]
+    fam_w: Optional[Dict[str, torch.Tensor]]
+    fam_tot: Optional[Dict[str, torch.Tensor]]
     adj: Optional[torch.Tensor]
     adj_keys: Tuple[str, ...]
+
+    @property
+    def decomposed(self) -> bool:
+        return self.fam_w is not None
 
     def to(self, device) -> "EdgeContext":
         def mv(x):
@@ -93,15 +114,8 @@ def _dir_spec(name):
     return int(m.group("k")), m.group("kind")
 
 
-def check_ported(names: Sequence[str]) -> None:
-    """Raise NotImplementedError for an aggregator this port lacks."""
-    for n in names:
-        d = _dir_spec(n)
-        if n in _PORTED_PLAIN or (d is not None and d[1] in _PORTED_DIR):
-            continue
-        raise NotImplementedError(
-            f"aggregator {n!r} is not ported yet (the softmax families wait "
-            "for a later slice)")
+def _softmax_key(k: int, kind: str) -> str:
+    return f"sm{k}+" if kind == "0.1" else f"sm{k}-"
 
 
 def _scatter_keys(name: str) -> tuple:
@@ -115,7 +129,9 @@ def _scatter_keys(name: str) -> tuple:
         return (f"abs{k}",)
     if kind in ("dx", "dx-no-abs"):
         return (f"delta{k}",)
-    return (f"pos{k}", f"neg{k}")          # dx-balanced
+    if kind == "dx-balanced":
+        return (f"pos{k}", f"neg{k}")
+    return (_softmax_key(k, kind),)
 
 
 def _total_keys(name: str) -> tuple:
@@ -128,10 +144,12 @@ def _total_keys(name: str) -> tuple:
         return (f"abs{k}",)
     if kind in ("dx", "dx-no-abs"):
         return (f"delta{k}", f"abs{k}")
-    return (f"pos{k}", f"neg{k}")          # dx-balanced
+    if kind == "dx-balanced":
+        return (f"pos{k}", f"neg{k}")
+    return (_softmax_key(k, kind),)
 
 
-def _family_weight(key: str, delta, maskf):
+def _family_weight(key: str, delta, mask, maskf, dst, n):
     """Per-edge weight vector for a family key, edge-mask-folded."""
     if key == "one":
         return maskf
@@ -143,6 +161,11 @@ def _family_weight(key: str, delta, maskf):
         return torch.relu(delta[:, int(key[3:])]) * maskf
     if key.startswith("neg"):
         return torch.relu(-delta[:, int(key[3:])]) * maskf
+    if key.startswith("sm"):
+        alpha = 0.1 if key.endswith("+") else -0.1
+        w = segment_softmax(alpha * delta[:, int(key[2:-1])].abs(), dst, n,
+                            mask)
+        return w * maskf
     raise KeyError(key)
 
 
@@ -160,40 +183,52 @@ def build_edge_context(eig: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                        decomposed: bool = True,
                        adj_dtype: Optional[torch.dtype] = None
                        ) -> EdgeContext:
-    """The per-forward-pass batch constants of the decomposed edge stage:
-    eig deltas, family weights and their per-destination totals, and the
-    adjacency blocks (one build_pair_adjacency launch).  None of it carries
-    a gradient."""
-    if not decomposed or mxu_layout is None:
+    """The per-forward-pass batch constants of the edge stage: the eig
+    deltas and, when decomposed, the family weights, their
+    per-destination totals and the adjacency blocks (one
+    build_pair_adjacency launch).  A per-edge context (decomposed False)
+    holds the deltas only and launches nothing.  None of it carries a
+    gradient."""
+    if mxu_layout is None:
         raise NotImplementedError(
-            "only the decomposed edge stage on the block layout is ported")
-    names = list(names)
-    check_ported(names)
+            "only the edge stage on the block layout is ported")
+    names = parse_names(names)
     n = eig.shape[0]
     delta = None
     if any(_dir_spec(x) for x in names):
         delta = (gather(eig, src) - gather(eig, dst)).detach()
+    ctx = EdgeContext(src=src, dst=dst, edge_mask=edge_mask, degree=degree,
+                      eig_delta=delta, num_nodes=n, fam_w=None, fam_tot=None,
+                      adj=None, adj_keys=())
+    if not decomposed:
+        return ctx
     keys = _unique(k for nm in names
                    for k in _scatter_keys(nm) + _total_keys(nm))
     tot_keys = _unique(k for nm in names for k in _total_keys(nm))
     adj_keys = tuple(_unique(k for nm in names for k in _scatter_keys(nm)))
     maskf = edge_mask.to(eig.dtype)
-    fam_w = {k: _family_weight(k, delta, maskf) for k in keys}
+    fam_w = {k: _family_weight(k, delta, edge_mask, maskf, dst, n).detach()
+             for k in keys}
     fam_tot = {}
-    if tot_keys:
-        stacked = torch.stack([fam_w[k] for k in tot_keys], dim=1)
+    # the softmax weights of a node sum to 1 when it has an edge: their
+    # totals are that indicator, not a scatter
+    scat_keys = [k for k in tot_keys if not k.startswith("sm")]
+    if scat_keys:
+        stacked = torch.stack([fam_w[k] for k in scat_keys], dim=1)
         tots = mxu.block_scatter_sum(stacked, mxu_layout.local_dst,
                                      mxu_layout.edge_chunk_dst,
                                      mxu_layout.n_node_blocks)[:n]
-        fam_tot = {k: tots[:, i] for i, k in enumerate(tot_keys)}
+        fam_tot = {k: tots[:, i] for i, k in enumerate(scat_keys)}
+    for k in tot_keys:
+        if k.startswith("sm"):
+            fam_tot[k] = (degree > 0).to(eig.dtype)
     adj = None
     if adj_keys:
         adj = mxu.build_pair_adjacency(
             torch.stack([fam_w[k] for k in adj_keys]), mxu_layout,
             out_dtype=adj_dtype)
-    return EdgeContext(src=src, dst=dst, edge_mask=edge_mask, degree=degree,
-                       eig_delta=delta, num_nodes=n, fam_w=fam_w,
-                       fam_tot=fam_tot, adj=adj, adj_keys=adj_keys)
+    return dataclasses.replace(ctx, fam_w=fam_w, fam_tot=fam_tot, adj=adj,
+                               adj_keys=adj_keys)
 
 
 def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
@@ -202,14 +237,15 @@ def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
                          c_edge: Optional[torch.Tensor] = None,
                          layout: Optional[mxu.MXULayout] = None
                          ) -> torch.Tensor:
-    """All aggregators over msg_e = g[src_e] + q[dst_e], concatenated on the
-    feature axis -> [N, len(names) * F].  q_node may be None (q = 0)."""
+    """All aggregators over msg_e = g[src_e] + q[dst_e] (+ c_edge[e]),
+    concatenated on the feature axis -> [N, len(names) * F].  q_node and
+    c_edge may be None (0)."""
     names = list(names)
-    check_ported(names)
-    if c_edge is not None:
-        raise NotImplementedError("edge features (c_edge) are not ported yet")
     if layout is None:
         raise NotImplementedError("only the block layout is ported")
+    if not ctx.decomposed:
+        raise ValueError("a per-edge edge context holds no weight families: "
+                         "build it with decomposed=True")
     f = g_node.shape[-1]
     n = ctx.num_nodes
     need_sq = any(nm in ("var", "std") for nm in names)
@@ -218,31 +254,55 @@ def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
         raise ValueError(f"edge context holds adjacency blocks {ctx.adj_keys}"
                          f", these aggregators need {full_keys}: build it "
                          "with the same names")
-
     nb = layout.n_node_blocks
+    # (g + c)^2 has a cross term: var/std with edge features scatter the
+    # per-edge values instead of multiplying the adjacency blocks
+    use_adj = c_edge is None or not need_sq
+    # the per-edge values ge: for max/min, and for the scatter branch
+    ge = None
+    if not use_adj or "max" in names or "min" in names:
+        ge = gather(g_node, ctx.src)
+        if c_edge is not None:
+            ge = ge + c_edge
+
     S = {}
-    if full_keys:
+    if full_keys and use_adj:
         gp = g_node.reshape(nb, mxu.TILE, f)[layout.pair_src]   # [P, T, F]
         T = mxu.pair_adj_matmul(ctx.adj, gp)                     # [P, K, T, F]
         Sb = segment_sum(T, layout.pair_dst, nb)                 # [nb, K, T, F]
         Sb = Sb.transpose(0, 1).reshape(len(full_keys), -1, f)
         S = {k: Sb[i][:n] for i, k in enumerate(full_keys)}
-    if need_sq:
-        one = ctx.adj[:, full_keys.index("one")]
-        T2 = mxu.pair_adj_matmul(one[:, None], gp * gp)[:, 0]   # [P, T, F]
-        S2 = segment_sum(T2, layout.pair_dst, nb)
-        S["one"] = torch.cat([S["one"], S2.reshape(-1, f)[:n]], dim=1)
+        if need_sq:                                 # c_edge is None here
+            one = ctx.adj[:, full_keys.index("one")]
+            T2 = mxu.pair_adj_matmul(one[:, None], gp * gp)[:, 0]  # [P,T,F]
+            S2 = segment_sum(T2, layout.pair_dst, nb)
+            S["one"] = torch.cat([S["one"], S2.reshape(-1, f)[:n]], dim=1)
+        if c_edge is not None:
+            sc, _ = mxu.weighted_segment_sums(
+                c_edge, torch.stack([ctx.fam_w[k] for k in full_keys]),
+                layout, n, n_full=len(full_keys))
+            for i, k in enumerate(full_keys):
+                S[k] = S[k] + sc[i]
+    elif full_keys:
+        cols, bounds, off = [], {}, 0
+        for k in full_keys:
+            d = torch.cat([ge, ge * ge], dim=1) if k == "one" and need_sq \
+                else ge
+            cols.append(d * ctx.fam_w[k][:, None])
+            bounds[k] = (off, off + d.shape[1])
+            off += d.shape[1]
+        out = mxu.block_scatter_sum(torch.cat(cols, dim=1), layout.local_dst,
+                                    layout.edge_chunk_dst, nb)[:n]
+        S = {k: out[:, a:b] for k, (a, b) in bounds.items()}
 
     deg = ctx.degree.to(g_node.dtype)
     degc = deg.clamp_min(1.0)[:, None]
     has_edge = (deg > 0)[:, None]
     q = q_node
-    # the extremes are not weighted sums: they take the per-edge values
-    # g[src], and only they do
+    # the extremes are not weighted sums: they take the per-edge values ge
     ext = None
     if "max" in names or "min" in names:
-        ext = extremes.segment_extremes(gather(g_node, ctx.src), layout,
-                                        ctx.edge_mask, n)
+        ext = extremes.segment_extremes(ge, layout, ctx.edge_mask, n)
     outs = []
     for name in names:
         if name == "sum":
@@ -253,10 +313,7 @@ def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
             val = s + q if q is not None else s
             outs.append(torch.where(has_edge, val, 0.0))
         elif name in ("var", "std"):
-            m1 = torch.where(has_edge, S["one"][:, :f] / degc, 0.0)
-            m2 = torch.where(has_edge, S["one"][:, f:2 * f] / degc, 0.0)
-            var = torch.relu(m2 - m1 * m1)
-            outs.append(var if name == "var" else torch.sqrt(var + EPS))
+            outs.append(_var_std(name, S["one"], f, degc, has_edge))
         elif name in ("max", "min"):
             # the kernel pair already writes 0 for nodes without an edge
             s = ext[0] if name == "max" else ext[1]
@@ -280,7 +337,7 @@ def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
                     s = s + t * q
                 val = s / (norm + EPS)
                 outs.append(val.abs() if kind == "dx" else val)
-            else:                                   # dx-balanced
+            elif kind == "dx-balanced":
                 tp = ctx.fam_tot[f"pos{k}"][:, None]
                 tn = ctx.fam_tot[f"neg{k}"][:, None]
                 sp = S[f"pos{k}"][:, :f] - tp * h_in
@@ -289,4 +346,127 @@ def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
                     sp = sp + tp * q
                     sn = sn + tn * q
                 outs.append((0.5 * (sp / (tp + EPS) + sn / (tn + EPS))).abs())
+            else:                   # softmax: the weights sum to 1[deg > 0]
+                key = _softmax_key(k, kind)
+                s = S[key][:, :f]
+                if q is not None:
+                    s = s + ctx.fam_tot[key][:, None] * q
+                outs.append(s)
+    return torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
+
+
+def _var_std(name, s_one, f, degc, has_edge):
+    """var/std from the [N, 2F] first and second moment sums."""
+    m1 = torch.where(has_edge, s_one[:, :f] / degc, 0.0)
+    m2 = torch.where(has_edge, s_one[:, f:2 * f] / degc, 0.0)
+    var = torch.relu(m2 - m1 * m1)
+    return var if name == "var" else torch.sqrt(var + EPS)
+
+
+def _fusable(name: str) -> bool:
+    if name in ("mean", "sum", "var", "std"):
+        return True
+    d = _dir_spec(name)
+    return d is not None and d[1] in _FUSABLE_DIR
+
+
+def _fused_aggregate(names, ctx: EdgeContext, msg, h_in, layout):
+    """Every weighted-sum aggregator of `names` over the per-edge messages
+    in one weighted_segment_sums scatter -> {name: [N, F]}."""
+    f = msg.shape[1]
+    need_sq = any(n in ("var", "std") for n in names)
+    specs, full = {}, {}          # row key -> weight [E], needs full sums
+
+    def want(key, vec, need_full):
+        if key not in specs:
+            specs[key] = vec
+            full[key] = need_full
+        else:
+            full[key] = full[key] or need_full
+
+    for name in names:
+        if name in ("mean", "sum", "var", "std"):
+            want(("one",), torch.ones_like(msg[:, 0]), True)
+            continue
+        k, kind = _dir_spec(name)
+        d = ctx.eig_delta[:, k]
+        if kind in ("av", "smooth"):
+            want(("abs", k), d.abs(), True)
+        elif kind in ("dx", "dx-no-abs"):
+            want(("delta", k), d, True)
+            want(("abs", k), d.abs(), False)      # the normaliser S_k only
+        else:                                      # dx-balanced
+            want(("pos", k), torch.relu(d), True)
+            want(("neg", k), torch.relu(-d), True)
+
+    # full-sum rows first, then the rows whose totals alone are read
+    keys = sorted(specs, key=lambda k: not full[k])
+    n_full = sum(1 for k in keys if full[k])
+    msg_aug = torch.cat([msg, msg * msg], dim=1) if need_sq else msg
+    mask = ctx.edge_mask.to(msg.dtype)
+    W = torch.stack([specs[k] * mask for k in keys])
+    sums, totals = mxu.weighted_segment_sums(msg_aug, W, layout,
+                                             ctx.num_nodes, n_full=n_full)
+    S = {k: (sums[i] if i < n_full else None, totals[i])
+         for i, k in enumerate(keys)}
+
+    deg = ctx.degree.to(msg.dtype)
+    degc = deg.clamp_min(1.0)[:, None]
+    has_edge = (deg > 0)[:, None]
+    out = {}
+    for name in names:
+        if name == "sum":
+            out[name] = S[("one",)][0][:, :f]
+        elif name == "mean":
+            out[name] = torch.where(has_edge, S[("one",)][0][:, :f] / degc,
+                                    0.0)
+        elif name in ("var", "std"):
+            out[name] = _var_std(name, S[("one",)][0], f, degc, has_edge)
+        else:
+            k, kind = _dir_spec(name)
+            if kind in ("av", "smooth"):
+                s, tot = S[("abs", k)]
+                out[name] = s[:, :f] / (tot[:, None] + EPS)
+            elif kind in ("dx", "dx-no-abs"):
+                s, tot = S[("delta", k)]
+                norm = S[("abs", k)][1]
+                val = (s[:, :f] - tot[:, None] * h_in) / (norm[:, None] + EPS)
+                out[name] = val.abs() if kind == "dx" else val
+            else:                                  # dx-balanced
+                sp, tp = S[("pos", k)]
+                sn, tn = S[("neg", k)]
+                val = 0.5 * ((sp[:, :f] - tp[:, None] * h_in)
+                             / (tp[:, None] + EPS)
+                             + (sn[:, :f] - tn[:, None] * h_in)
+                             / (tn[:, None] + EPS))
+                out[name] = val.abs()
+    return out
+
+
+def _softmax_aggregate(name: str, ctx: EdgeContext, msg):
+    """sum_e softmax_e(+-0.1 |d_e|) msg_e per destination."""
+    k, kind = _dir_spec(name)
+    alpha = 0.1 if kind == "0.1" else -0.1
+    w = segment_softmax(alpha * ctx.eig_delta[:, k].abs(), ctx.dst,
+                        ctx.num_nodes, ctx.edge_mask)
+    return segment_sum(msg * w[:, None], ctx.dst, ctx.num_nodes,
+                       ctx.edge_mask)
+
+
+def aggregate(names: Sequence[str], ctx: EdgeContext, msg: torch.Tensor,
+              h_in: torch.Tensor,
+              layout: Optional[mxu.MXULayout] = None) -> torch.Tensor:
+    """All aggregators over the per-edge messages msg [E, F] (every padded
+    edge; pad edges never reach a reduction), concatenated on the feature
+    axis -> [N, len(names) * F] (reference nets/dgn_layer.py:94)."""
+    names = list(names)
+    if layout is None:
+        raise NotImplementedError("only the block layout is ported")
+    fuse = [n for n in names if _fusable(n)]
+    out = _fused_aggregate(fuse, ctx, msg, h_in, layout) if fuse else {}
+    if "max" in names or "min" in names:
+        out["max"], out["min"] = extremes.segment_extremes(
+            msg, layout, ctx.edge_mask, ctx.num_nodes)
+    outs = [out[n] if n in out else _softmax_aggregate(n, ctx, msg)
+            for n in names]
     return torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]

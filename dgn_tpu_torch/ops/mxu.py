@@ -6,11 +6,15 @@ itself larger), every 128-edge chunk has one src block and one dst block,
 and the graph axis is cut into 128-graph blocks.  The decomposed edge stage
 then runs as one batched dense product per layer against per-(src_block,
 dst_block) adjacency blocks built once per forward pass
-(`build_pair_adjacency`, a hand-written CUDA kernel on the card).
+(`build_pair_adjacency`, a hand-written CUDA kernel on the card).  The
+per-edge message path reduces every weighted sum of a layer in one scatter
+(`weighted_segment_sums`).
 
 The reference expresses gathers and scatters as one-hot matmuls because
-XLA:TPU scatters are slow; that is a TPU workaround.  Here their contracts
-are plain `index_add_` and `index_select` on global indices.
+XLA:TPU scatters are slow; that is a TPU workaround.  Here the scatters
+are plain `index_add_` on global indices, and the reference's
+`gather_src`/`gather_dst` (`block_gather`) are `segment.gather` on the
+batch's global src/dst, which the layout's local indices reproduce.
 """
 from __future__ import annotations
 
@@ -176,6 +180,24 @@ def block_scatter_sum(data: torch.Tensor, local: torch.Tensor,
     idx = torch.where(valid,
                       chunk_block.repeat_interleave(TILE) * TILE + local, 0)
     return segment_sum(data, idx, n_blocks * TILE, mask=valid)
+
+
+def weighted_segment_sums(msg: torch.Tensor, weights: torch.Tensor,
+                          layout: MXULayout, n_pad: int, n_full: int):
+    """Every weighted edge->dst reduction of a layer in one scatter.
+
+    msg: [E, F]; weights: [n_w, E], pad edges already zero-weighted.  The
+    first n_full weight rows get full feature sums, every row its weight
+    total.  Returns (sums [n_full, n_pad, F], totals
+    [n_w, n_pad])."""
+    f = msg.shape[1]
+    cols = [msg * weights[i][:, None] for i in range(n_full)]
+    cols.append(weights.T)                              # the totals columns
+    out = block_scatter_sum(torch.cat(cols, dim=1), layout.local_dst,
+                            layout.edge_chunk_dst,
+                            layout.n_node_blocks)[:n_pad]
+    sums = out[:, :n_full * f].reshape(n_pad, n_full, f).transpose(0, 1)
+    return sums, out[:, n_full * f:].T
 
 
 def graph_pool_sum(h: torch.Tensor, layout: MXULayout,

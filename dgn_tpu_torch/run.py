@@ -69,9 +69,9 @@ def pos_enc_width(np_cfg, graph) -> Optional[int]:
 
 def build_model(task: str, np_cfg, ds, generator: torch.Generator):
     """(model, loss) from the task's factory for the dataset ds; SBM and
-    superpixels take their class count, and superpixels its float feature
-    width, from its meta, and the positional encoding its width from its
-    first train graph."""
+    superpixels take their class count, and superpixels its float node and
+    edge feature widths, from its meta, and the positional encoding its
+    width from its first train graph."""
     from .models import MODEL_FACTORIES
     factory = MODEL_FACTORIES[task]
     meta = ds.meta
@@ -80,7 +80,7 @@ def build_model(task: str, np_cfg, ds, generator: torch.Generator):
         return factory(np_cfg, meta["n_classes"], generator, pos_enc_in=pe)
     if task == "superpixels":
         return factory(np_cfg, meta["n_classes"], meta["in_dim"], generator,
-                       pos_enc_in=pe)
+                       pos_enc_in=pe, edge_in=meta["edge_dim"])
     return factory(np_cfg, generator, pos_enc_in=pe)
 
 

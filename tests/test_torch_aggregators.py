@@ -1,6 +1,6 @@
 """Decomposed aggregators of the port == dgn_tpu's, forward and gradients.
 
-For each aggregator the canonical configs use or the port covers,
+For every aggregator name, the softmax families included,
 the same block-layout batch and the same node inputs (g, q, h_in from a
 seeded numpy generator) go through dgn_tpu's build_edge_context +
 aggregate_decomposed and through the port's.  The outputs and the gradients
@@ -30,7 +30,7 @@ from dgn_tpu_torch.ops import aggregators as tagg
 torch.set_num_threads(1)
 
 NAMES = ["mean", "sum", "max", "min", "var", "std", "dir1-av", "dir1-dx",
-         "dir1-dx-no-abs", "dir1-dx-balanced"]
+         "dir1-dx-no-abs", "dir1-dx-balanced", "dir1-neg-0.1", "dir1-0.1"]
 F = 6
 
 
@@ -82,11 +82,3 @@ def test_aggregate_decomposed_matches_reference(name):
         np.testing.assert_allclose(grad.numpy(), np.asarray(w),
                                    rtol=1e-5, atol=grad_atol,
                                    err_msg=f"grad wrt {label}")
-
-
-@pytest.mark.parametrize("name", ["dir1-neg-0.1", "dir1-0.1"])
-def test_unported_aggregators_raise(name):
-    _, tb = _batches()
-    with pytest.raises(NotImplementedError):
-        tagg.build_edge_context(tb.eig, tb.src, tb.dst, tb.edge_mask,
-                                tb.in_degree, names=[name], mxu_layout=tb.mxu)

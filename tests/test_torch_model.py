@@ -29,6 +29,8 @@ import torch
 from dgn_tpu import graph as jgraph
 from dgn_tpu.data import synthetic as jsyn
 from dgn_tpu.models import DGNConfig as JConfig
+from dgn_tpu.models import pcba_model as jpcba
+from dgn_tpu.models import superpixels_model as jsp
 from dgn_tpu.models import zinc_model as jzinc
 from dgn_tpu.ops.scalers import degree_stats
 from dgn_tpu.train.trainer import TrainParams as JParams
@@ -38,6 +40,8 @@ from dgn_tpu.train.trainer import TrainState
 from dgn_tpu_torch import graph as tgraph
 from dgn_tpu_torch.convert import flatten, flax_path, load_jax_params
 from dgn_tpu_torch.models import DGNConfig as TConfig
+from dgn_tpu_torch.models import pcba_model as tpcba
+from dgn_tpu_torch.models import superpixels_model as tsp
 from dgn_tpu_torch.models import zinc_model as tzinc
 from dgn_tpu_torch.train.trainer import TrainParams as TParams
 from dgn_tpu_torch.train.trainer import Trainer as TTrainer
@@ -97,34 +101,48 @@ def test_load_jax_params_covers_every_parameter(setup):
                                 if k != "MLP_layer"}, batch_stats)
 
 
-def test_load_jax_params_covers_every_option_of_the_layer_library():
-    """Towers (tower_t, mixing), posttrans_layers 2 (FCLayer_0 and
-    FCLayer_1 side by side), the virtual node (fc_layer with its
-    MaskedBatchNorm_0) and the positional encoding: every parameter and
-    buffer maps, in both directions, and a missing one raises."""
-    graphs = jsyn.synthetic_zinc(6, seed=5)
-    for g in graphs:
-        g.pos_enc = g.eig[:, 1:4]
-    kw = dict(hidden_dim=10, out_dim=10, L=3, type_net="towers", towers=2,
-              posttrans_layers=2, virtual_node="mean", pos_enc_dim=3)
-    jmodel, _ = jzinc(JConfig(**kw))
+def _random_trees(jmodel, graphs):
+    """Random params and batch_stats of the shapes jmodel.init gives."""
     variables = jax.eval_shape(
         lambda key: jmodel.init(key, jgraph.pack_graphs(
             graphs, mxu_layout=True), deterministic=True),
         jax.random.PRNGKey(0))
     rng = np.random.default_rng(2)
-    params, batch_stats = (jax.tree_util.tree_map(
+    return (jax.tree_util.tree_map(
         lambda s: rng.normal(size=s.shape).astype(np.float32), variables[k])
         for k in ("params", "batch_stats"))
+
+
+def test_load_jax_params_covers_every_option_of_the_layer_library():
+    """Towers (tower_t, mixing) with a 2-layer per-edge pretrans on edge
+    features, posttrans_layers 2 (FCLayer_0 and FCLayer_1 side by side),
+    the virtual node (fc_layer with its MaskedBatchNorm_0), the positional
+    encoding, and the three edge encoders (ZINC's embedding, the
+    superpixels' linear, the OGB bond encoder) under complex layers whose
+    linear pretrans takes the edge embedding: every parameter and buffer
+    maps, in both directions, and a missing one raises."""
+    graphs = jsyn.synthetic_zinc(6, seed=5)
+    for g in graphs:
+        g.pos_enc = g.eig[:, 1:4]
+    kw = dict(hidden_dim=10, out_dim=10, L=3, type_net="towers", towers=2,
+              posttrans_layers=2, virtual_node="mean", pos_enc_dim=3,
+              edge_feat=True, edge_dim=4, pretrans_layers=2)
+    params, batch_stats = _random_trees(jzinc(JConfig(**kw))[0], graphs)
     model, _ = tzinc(TConfig(**kw), torch.Generator().manual_seed(0),
                      pos_enc_in=3)
     load_jax_params(model, params, batch_stats)
     flat = flatten(params)
     for path in ("layer_0/tower_1/posttrans/FCLayer_1/kernel",
-                 "layer_0/tower_0/pretrans/kernel", "layer_2/mixing/bias",
+                 "layer_0/tower_0/pretrans/FCLayer_0/kernel",
+                 "layer_0/tower_1/pretrans/FCLayer_1/bias",
+                 "layer_2/mixing/bias",
                  "virtual_node_1/fc_layer/MaskedBatchNorm_0/scale",
-                 "embedding_pos_enc/kernel"):
+                 "embedding_pos_enc/kernel", "embedding_e/embedding"):
         assert path in flat, path
+    # each tower takes its 5-wide slice of the input and the whole edge
+    # embedding
+    assert flat["layer_0/tower_0/pretrans/FCLayer_0/kernel"].shape == \
+        (2 * 5 + 4, 5)
     assert "virtual_node_1/fc_layer/MaskedBatchNorm_0/var" in \
         flatten(batch_stats)
     _assert_tree(model.named_parameters(), flat, 0, 0)
@@ -132,6 +150,28 @@ def test_load_jax_params_covers_every_option_of_the_layer_library():
     with pytest.raises(KeyError):
         load_jax_params(model, {k: v for k, v in params.items()
                                 if k != "virtual_node_0"}, batch_stats)
+
+    edge = dict(hidden_dim=10, out_dim=10, L=2, edge_feat=True, edge_dim=4)
+    sp = jsyn.synthetic_superpixels(2, seed=3, nodes=40, feat_dim=5,
+                                    n_classes=3)
+    cases = [(jsp(JConfig(**edge), 3)[0], sp,
+              tsp(TConfig(**edge), 3, 5, torch.Generator(), edge_in=1)[0],
+              "embedding_e/kernel"),
+             (jpcba(JConfig(**edge))[0],
+              jsyn.synthetic_ogb_mol(3, seed=6, n_tasks=128, k_eig=3),
+              tpcba(TConfig(**edge), torch.Generator())[0],
+              "embedding_e/bond/emb_2")]
+    for jmodel, gs, model, path in cases:
+        params, batch_stats = _random_trees(jmodel, gs)
+        load_jax_params(model, params, batch_stats)
+        flat = flatten(params)
+        assert path in flat, path
+        assert flat["layer_1/pretrans/kernel"].shape == (2 * 10 + 4, 10)
+        _assert_tree(model.named_parameters(), flat, 0, 0)
+        _assert_tree(model.named_buffers(), flatten(batch_stats), 0, 0)
+        with pytest.raises(KeyError):
+            load_jax_params(model, {k: v for k, v in params.items()
+                                    if k != "embedding_e"}, batch_stats)
 
 
 def test_flatten_drops_only_the_linear_params_holder():
@@ -217,9 +257,7 @@ def test_zinc_adam_step_matches_reference_trainer(setup):
                  rtol=1e-4, atol=1e-6)
 
 
-@pytest.mark.parametrize("field,value", [("pretrans_layers", 2),
-                                         ("edge_feat", True),
-                                         ("aggregators", "mean dir1-0.1"),
+@pytest.mark.parametrize("field,value", [("bn_axis", "dp"),
                                          ("compute_dtype", "bfloat16"),
                                          ("readout", "none")])
 def test_unported_config_raises(field, value):

@@ -1,5 +1,6 @@
 """The port's entry point: plateau schedule parity, end-to-end CPU runs
-(ZINC, and the towers, virtual-node and augmented paths), device selection,
+(ZINC, and the towers, virtual-node, augmented, edge-feature, per-edge
+pretrans and decompose-off paths), device selection,
 rejected options, a `data` block's pos_enc_dim, and import isolation from
 JAX."""
 from __future__ import annotations
@@ -26,8 +27,8 @@ REPO = Path(__file__).resolve().parents[1]
 CONFIGS = REPO / "configs"
 CONFIG = str(CONFIGS / "molecules_graph_regression_DGN_ZINC.json")
 SMALL = ["--config", CONFIG, "--epochs", "1", "--synthetic_size", "32"]
-# (config, flags, metric): chip_smoke.py's zinc-towers, pcba-vn and
-# cifar10-aug paths at a tiny size
+# (config, flags, metric): chip_smoke.py's zinc-towers, pcba-vn,
+# cifar10-aug, zinc-edge, zinc-pretrans and hiv-per-edge paths at a tiny size
 NEW_PATHS = {
     "zinc-towers": ("molecules_graph_regression_DGN_ZINC.json",
                     ["--type_net", "towers", "--flip", "True",
@@ -39,6 +40,15 @@ NEW_PATHS = {
                     ["--augmentation", "15", "--distortion", "0.1", "--flip",
                      "True", "--posttrans_layers", "2", "--in_feat_dropout",
                      "0.1", "--synthetic_size", "16"], "acc"),
+    "zinc-edge": ("molecules_graph_regression_DGN_ZINC.json",
+                  ["--edge_feat", "True", "--synthetic_size", "32"], "mae"),
+    "zinc-pretrans": ("molecules_graph_regression_DGN_ZINC.json",
+                      ["--edge_feat", "True", "--pretrans_layers", "2",
+                       "--posttrans_layers", "2", "--synthetic_size", "32"],
+                      "mae"),
+    "hiv-per-edge": ("molecules_graph_classification_DGN_HIV.json",
+                     ["--decompose", "False", "--synthetic_size", "32"],
+                     "rocauc"),
 }
 
 
@@ -70,7 +80,6 @@ def test_run_without_gpu_refuses_cpu_fallback():
 
 @pytest.mark.parametrize("flags", [["--layout", "flat"],
                                    ["--n_buckets", "2"],
-                                   ["--edge_feat", "true"],
                                    ["--compute_dtype", "bfloat16"],
                                    ["--dataset", "COLLAB"]])
 def test_run_rejects_unported_options(flags):
