@@ -21,7 +21,7 @@ and no device line.  Phases, each of which fails the script:
    The extremes pair is also held against its plain version at F = 14, the
    width a towers layer gives each of its 5 towers at HIV's hidden 70;
 4. training, once per path: the port's entry point (dgn_tpu_torch.run)
-   trains each of the eleven configs of PATHS at full width on the card:
+   trains each of the thirteen configs of PATHS at full width on the card:
    ZINC, HIV, PATTERN, CIFAR10, PCBA at its batch of 2048 in 2
    micro-batches, and with the options of the reference's own training
    scripts: ZINC with 5 towers, flip and a positional encoding
@@ -29,18 +29,28 @@ and no device line.  Phases, each of which fails the script:
    rotation, distortion, flip, a 2-layer posttrans and input dropout
    (cifar10-aug), ZINC with bond-type edge features (zinc-edge), the same
    with a 2-layer per-edge pretrans and a 2-layer posttrans
-   (zinc-pretrans), and HIV on the per-edge message path (hiv-per-edge,
-   --decompose False).  Every kernel launch counter is set to 0 just
-   before and read just after each run, and checked against the count the
-   path's loaders, tower count and edge stage imply (no adjacency build
-   where the config does not decompose); then each path's step time and
-   device activity, and one step from identical weights and identical
-   augmentation draws on the CPU and on the card (with the entries that
-   fall on different sides of a kink, a max/min edge, abs or a ReLU, on
-   the two sides: where gradients may hop).  On the ZINC batch, one
-   more such step with the softmax aggregators (`mean dir1-0.1
+   (zinc-pretrans), HIV on the per-edge message path (hiv-per-edge,
+   --decompose False), and ZINC and HIV on the flat layout (zinc-flat,
+   hiv-flat, --layout flat: segment ops, no kernel).  Every kernel launch
+   counter is set to 0 just before and read just after each run, and
+   checked against the count the path's loaders, tower count, edge stage
+   and layout imply (no adjacency build where the config does not
+   decompose, no launch at all on the flat layout); then each path's step
+   time and device activity, and one step from identical weights and
+   identical augmentation draws on the CPU and on the card (with the
+   entries that fall on different sides of a kink, a max/min edge, abs or
+   a ReLU, on the two sides: where gradients may hop).  On the ZINC
+   batch, one more such step with the softmax aggregators (`mean dir1-0.1
    dir1-neg-0.1`), decomposed (their weights go through
-   build_pair_adjacency) and per-edge.
+   build_pair_adjacency) and per-edge.  On zinc-flat's first batch, the
+   flat-versus-block check: the same graphs packed both ways, one step
+   from the same weights on the card, the same loss and scores;
+5. COLLAB: `dgn_tpu_torch.run --dataset COLLAB` trains link prediction on
+   one synthetic 4,096-node graph (one epoch of 3 edge batches of 4,096,
+   the default DGN-complex net at hidden 45, L = 4) with both counters
+   at 0 before and required at 0 after; then MIN_STEPS train steps timed
+   and profiled, and one step from identical weights and identical
+   positive and negative edges on the CPU and on the card.
 
 Prints a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`.  Needs no network; starts no process other
@@ -67,8 +77,9 @@ CONFIGS = REPO / "configs"
 
 
 class TrainPath(NamedTuple):
-    """One training path: the config, the count of its DGN layers with
-    max/min, its synthetic_size and extra CLI flags."""
+    """One training path: the config, the count of its DGN layers whose
+    max/min runs the extremes kernel pair (0 on the flat layout, whose
+    max/min is scatter_reduce), its synthetic_size and extra CLI flags."""
     key: str
     config: str
     extremes_layers: int
@@ -101,7 +112,12 @@ PATHS = (
     TrainPath("zinc-pretrans", ZINC, 0, 1024,
               ("--edge_feat", "True", "--pretrans_layers", "2",
                "--posttrans_layers", "2")),
-    TrainPath("hiv-per-edge", HIV, 4, 1024, ("--decompose", "False")))
+    TrainPath("hiv-per-edge", HIV, 4, 1024, ("--decompose", "False")),
+    TrainPath("zinc-flat", ZINC, 0, 1024, ("--layout", "flat")),
+    TrainPath("hiv-flat", HIV, 0, 1024, ("--layout", "flat")))
+# COLLAB's dense eigensolve grows as n^3: 4,096 nodes take about 10 s of
+# host time, 16,384 did not finish in 90 s
+COLLAB_NODES = 4096
 SOFTMAX_AGGREGATORS = "mean dir1-0.1 dir1-neg-0.1"
 EPOCHS = 1
 MIN_STEPS = 24           # timed train steps per path (the first 3 dropped)
@@ -223,16 +239,23 @@ def share_datasets() -> None:
     repeated data generation; drive_path fails if a run loads its data
     without this cache."""
     from dgn_tpu_torch.data import datasets
-    load, cache = datasets.load_dataset, {}
+    load, load_collab, cache = datasets.load_dataset, datasets.load_collab, {}
 
     def load_once(name, dp):
         key = (name, dataclasses.astuple(dp))
         _LOADS.append(key)
         if key not in cache:
-            cache[key] = load(name, dp)
+            cache[key] = (load_collab(dp) if name == "COLLAB"
+                          else load(name, dp))
         return cache[key]
 
     datasets.load_dataset = load_once
+    datasets.load_collab = lambda dp: load_once("COLLAB", dp)
+
+
+def is_flat(path: TrainPath) -> bool:
+    return "--layout" in path.flags and \
+        path.flags[path.flags.index("--layout") + 1] == "flat"
 
 
 def towers_of(net) -> int:
@@ -240,12 +263,13 @@ def towers_of(net) -> int:
     return net.towers if net.type_net == "towers" else 1
 
 
-def adjacency_builds(net) -> int:
+def adjacency_builds(net, flat: bool) -> int:
     """Adjacency builds per forward pass of a net config: 1 where it takes
     the decomposed edge stage (decompose on and a linear pretrans, which
-    the simple layer always has), 0 on the per-edge message path."""
-    return int(net.decompose and (net.type_net == "simple"
-                                  or net.pretrans_layers == 1))
+    the simple layer always has) on the block layout, 0 on the per-edge
+    message path and on the flat layout, which builds no blocks."""
+    return int(not flat and net.decompose and (
+        net.type_net == "simple" or net.pretrans_layers == 1))
 
 
 def path_argv(path: TrainPath) -> list:
@@ -641,7 +665,7 @@ def drive_path(torch, path: TrainPath):
     evals = units["val"] + units["test"]
     forwards = steps + EPOCHS * evals + units["train"] + evals
     n_ext = path.extremes_layers * towers_of(model.cfg)
-    n_adj = adjacency_builds(model.cfg)
+    n_adj = adjacency_builds(model.cfg, is_flat(path))
     expected = {"build_pair_adjacency":
                 n_adj * (steps + units["train"] + evals),
                 "segment_extremes_fwd": n_ext * forwards,
@@ -656,10 +680,10 @@ def drive_path(torch, path: TrainPath):
     return report, launches
 
 
-def step_profile(torch, trainer, batches, label: str, per_micro: dict):
-    """Step time over steady steps, then device activity in a profiled
-    window; checks the launches each step makes (per_micro times the
-    step's micro-batches)."""
+def step_profile(torch, step, batches, label: str, per_micro: dict):
+    """Step time of step(batch) over steady steps, then device activity in
+    a profiled window; checks the launches each step makes (per_micro
+    times the step's micro-batches)."""
     counters = launch_counters()
     before = {k: c.launches for k, c in counters.items()}
     micros = sum(len(gb) if isinstance(gb, list) else 1 for gb in batches)
@@ -667,7 +691,7 @@ def step_profile(torch, trainer, batches, label: str, per_micro: dict):
     for gb in batches:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        loss, _ = trainer.train_step(gb)
+        loss, _ = step(gb)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
         if not math.isfinite(float(loss)):
@@ -682,8 +706,7 @@ def step_profile(torch, trainer, batches, label: str, per_micro: dict):
           f"steps (min {min(steady):.3f}, max {max(steady):.3f}; first "
           f"{times[0]:.1f} ms)")
     n_prof = 5
-    events = profiled(torch, lambda: [trainer.train_step(gb)
-                                      for gb in batches[:n_prof]])
+    events = profiled(torch, lambda: [step(gb) for gb in batches[:n_prof]])
     by_name = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3 / n_prof
@@ -701,11 +724,13 @@ KINKS = ("abs", "relu", "leaky_relu")
 @contextlib.contextmanager
 def recording_kinks(torch, calls: list):
     """Appends, in call order, the CPU copies of the inputs of every call
-    made inside the block where a gradient can hop: segment_extremes
-    ("max/min": the values, global dst, edge mask, node count) and abs,
-    relu and leaky_relu (their input)."""
+    made inside the block where a gradient can hop: the aggregators'
+    max/min ("max/min": the values, global dst, edge mask, node count),
+    through the extremes kernel pair on the block layout or the segment
+    ops on the flat one, and abs, relu and leaky_relu (their input)."""
+    import types
     from torch.overrides import TorchFunctionMode
-    from dgn_tpu_torch.ops import extremes, mxu
+    from dgn_tpu_torch.ops import aggregators, extremes, mxu, segment
     inner = extremes.segment_extremes
 
     def spy(ge, layout, edge_mask, num_nodes):
@@ -715,6 +740,21 @@ def recording_kinks(torch, calls: list):
                       edge_mask.cpu(), num_nodes))
         return inner(ge, layout, edge_mask, num_nodes)
 
+    def flat_spy(fn):
+        def call(data, segment_ids, num_segments, mask):
+            calls.append(("max/min", data.detach().cpu(),
+                          segment_ids.long().cpu(), mask.cpu(),
+                          num_segments))
+            return fn(data, segment_ids, num_segments, mask)
+        return call
+
+    # the aggregators' view of the segment module only: segment_extremes
+    # itself calls segment_max, which must not count twice
+    spied_segment = types.SimpleNamespace(**{
+        **vars(segment), **{name: flat_spy(getattr(segment, name)) for name in
+                            ("segment_extremes", "segment_max",
+                             "segment_min")}})
+
     class Inputs(TorchFunctionMode):
         def __torch_function__(self, func, types, args=(), kwargs=None):
             name = getattr(func, "__name__", "")
@@ -723,11 +763,13 @@ def recording_kinks(torch, calls: list):
             return func(*args, **(kwargs or {}))
 
     extremes.segment_extremes = spy
+    aggregators.segment = spied_segment
     try:
         with Inputs():
             yield
     finally:
         extremes.segment_extremes = inner
+        aggregators.segment = segment
 
 
 def extremes_moved(torch, a, b, dst, mask, n):
@@ -787,6 +829,47 @@ def kinks_crossed(torch, cpu_calls, card_calls) -> str:
         f"diff| {d:.3g})" for kind, (n, c, g, d) in out.items())
 
 
+def param_report(torch, model_cpu, model_gpu, lr: float) -> str:
+    """How far one step from identical weights left the CPU's and the
+    card's parameters apart, and their gradients."""
+    d_param = {name: (a.detach() - b.detach().cpu()).abs().max().item()
+               for (name, a), b in zip(model_cpu.named_parameters(),
+                                       model_gpu.parameters())}
+    worst = max(d_param, key=d_param.get)
+    # a posttrans bias that feeds straight into batch norm (no graph norm,
+    # or graph norm over one graph) has a gradient that is zero up to
+    # rounding; Adam's first step turns that noise into a step of up to lr
+    # either way, on each side.  So do weights whose gradient is zero up
+    # to rounding, hence the gradients' own difference and the count of
+    # entries that moved apart
+    rest = max(v for k, v in d_param.items()
+               if not k.endswith("posttrans.bias"))
+    # and the entries Adam moved apart: how many of them got gradients of
+    # opposite signs on the two sides, and how large the CPU's was there
+    grads = {name: (a.grad, b.grad.cpu()) for (name, a), b in zip(
+        model_cpu.named_parameters(), model_gpu.parameters())}
+    d_grads = {k: (a - b).abs().max().item() for k, (a, b) in grads.items()}
+    worst_grad = max(d_grads, key=d_grads.get)
+    g_max = max(a.abs().max().item() for a, _ in grads.values())
+    apart = flipped = 0
+    g_apart = 0.0
+    for (name, a), b in zip(model_cpu.named_parameters(),
+                            model_gpu.parameters()):
+        far = (a.detach() - b.detach().cpu()).abs() > 0.1 * lr
+        ga, gb = grads[name]
+        apart += int(far.sum())
+        flipped += int((far & (ga.sign() != gb.sign())).sum())
+        if far.any():
+            g_apart = max(g_apart, ga[far].abs().max().item())
+    n_param = sum(p.numel() for p in model_cpu.parameters())
+    return (f"max |grad diff| {d_grads[worst_grad]:.3g} ({worst_grad}; max "
+            f"|grad| {g_max:.3g}), max |param diff after Adam| "
+            f"{d_param[worst]:.3g} ({worst}; {rest:.3g} without the "
+            f"posttrans biases; {apart} of {n_param} entries apart by more "
+            f"than lr/10, {flipped} of them with gradients of opposite "
+            f"signs, CPU |grad| <= {g_apart:.3g} there)")
+
+
 def cpu_vs_card(torch, task, cfg, ds, params, batch):
     """One train step from identical weights and batch (or list of
     micro-batches) on the CPU (plain versions) and on the card (kernels),
@@ -813,54 +896,27 @@ def cpu_vs_card(torch, task, cfg, ds, params, batch):
     for gb, a, b in zip(micros, s_cpu, s_gpu):
         m = gb.node_mask if task == "sbm" else gb.graph_mask
         pairs.append((a[m], b.cpu()[m]))
+    check_step(torch, f"one {task} step over {len(micros)} packed "
+               f"batch(es), augmentation {'on' if aug else 'off'}",
+               l_cpu, l_gpu, pairs,
+               param_report(torch, model_cpu, model_gpu, params.init_lr),
+               kinks_crossed(torch, cpu_calls, card_calls))
+
+
+def check_step(torch, what: str, l_cpu, l_gpu, pairs, params_line: str,
+               kinks: str) -> None:
+    """Prints and checks a CPU-vs-card step: the loss at STEP_RTOL, each
+    (CPU, card) pair of score tensors at STEP_RTOL / STEP_ATOL."""
     d_scores = max((a - b).abs().max().item() for a, b in pairs)
     d_loss = abs(float(l_cpu) - float(l_gpu))
-    d_param = {name: (a.detach() - b.detach().cpu()).abs().max().item()
-               for (name, a), b in zip(model_cpu.named_parameters(),
-                                       model_gpu.parameters())}
-    worst = max(d_param, key=d_param.get)
-    # a posttrans bias that feeds straight into batch norm (no graph norm)
-    # has a gradient that is zero up to rounding; Adam's first step turns
-    # that noise into a step of up to lr either way, on each side.  So do
-    # weights whose gradient is zero up to rounding, hence the gradients'
-    # own difference and the count of entries that moved apart
-    rest = max(v for k, v in d_param.items()
-               if not k.endswith("posttrans.bias"))
-    # and the entries Adam moved apart: how many of them got gradients of
-    # opposite signs on the two sides, and how large the CPU's was there
-    grads = {name: (a.grad, b.grad.cpu()) for (name, a), b in zip(
-        model_cpu.named_parameters(), model_gpu.parameters())}
-    d_grads = {k: (a - b).abs().max().item() for k, (a, b) in grads.items()}
-    worst_grad = max(d_grads, key=d_grads.get)
-    g_max = max(a.abs().max().item() for a, _ in grads.values())
-    lr = params.init_lr
-    apart = flipped = 0
-    g_apart = 0.0
-    for (name, a), b in zip(model_cpu.named_parameters(),
-                            model_gpu.parameters()):
-        far = (a.detach() - b.detach().cpu()).abs() > 0.1 * lr
-        ga, gb = grads[name]
-        apart += int(far.sum())
-        flipped += int((far & (ga.sign() != gb.sign())).sum())
-        if far.any():
-            g_apart = max(g_apart, ga[far].abs().max().item())
-    n_param = sum(p.numel() for p in model_cpu.parameters())
-    print(f"cpu vs cuda, one {task} step over {len(micros)} packed "
-          f"batch(es), augmentation {'on' if aug else 'off'}: "
-          f"|loss diff| {d_loss:.3g} (loss {float(l_cpu):.6f}), "
-          f"max |score diff| {d_scores:.3g}, max |grad diff| "
-          f"{d_grads[worst_grad]:.3g} ({worst_grad}; max |grad| "
-          f"{g_max:.3g}), max |param diff after Adam| "
-          f"{d_param[worst]:.3g} ({worst}; {rest:.3g} without the posttrans "
-          f"biases; {apart} of {n_param} entries apart by more than lr/10, "
-          f"{flipped} of them with gradients of opposite signs, CPU |grad| "
-          f"<= {g_apart:.3g} there)")
-    print(f"  kinks crossed between the CPU and the card: "
-          f"{kinks_crossed(torch, cpu_calls, card_calls)}")
+    print(f"cpu vs cuda, {what}: |loss diff| {d_loss:.3g} (loss "
+          f"{float(l_cpu):.6f}), max |score diff| {d_scores:.3g}, "
+          f"{params_line}")
+    print(f"  kinks crossed between the CPU and the card: {kinks}")
     if not (all(torch.allclose(b, a, rtol=STEP_RTOL, atol=STEP_ATOL)
                 for a, b in pairs)
             and math.isclose(float(l_gpu), float(l_cpu), rel_tol=STEP_RTOL)):
-        fail(f"the card's {task} step disagrees with the CPU step")
+        fail(f"the card's step ({what}) disagrees with the CPU step")
 
 
 def softmax_check(torch, task, net, ds, params, batch):
@@ -879,6 +935,46 @@ def softmax_check(torch, task, net, ds, params, batch):
         if built != int(decompose):
             fail(f"the softmax step with decompose {decompose} launched "
                  f"build_pair_adjacency {built} times")
+
+
+def flat_vs_block(torch, task, net, ds, params):
+    """The first batch_size train graphs packed flat and under the block
+    layout, in the same order, and one train step on each from the same
+    weights, both on the card: the same loss and scores at STEP_RTOL /
+    STEP_ATOL (their sums run in other orders, the block one through the
+    kernels)."""
+    from dgn_tpu_torch import run
+    from dgn_tpu_torch.graph import (bucket_sizes_for, mxu_bucket_sizes,
+                                     mxu_pair_pad, pack_graphs)
+    from dgn_tpu_torch.train.trainer import Trainer
+    graphs = ds.train[:params.batch_size]
+    g = len(graphs)
+    n_flat, e_flat = bucket_sizes_for(graphs, g)
+    n_pad, e_pad, g_pad = mxu_bucket_sizes(graphs, g)
+    batches = {
+        "flat": pack_graphs(graphs, n_pad=n_flat, e_pad=e_flat, g_pad=g),
+        "block": pack_graphs(graphs, n_pad=n_pad, e_pad=e_pad, g_pad=g_pad,
+                             mxu_layout=True, n_pairs_pad=mxu_pair_pad(
+                                 graphs, g, n_pad, e_pad))}
+    net = dataclasses.replace(net, dropout=0.0, in_feat_dropout=0.0)
+    model, loss_fn = run.build_model(task, net, ds,
+                                     torch.Generator().manual_seed(41))
+    steps = {}
+    for name, batch in batches.items():
+        trainer = Trainer(copy.deepcopy(model), loss_fn, params, task=task,
+                          device=DEVICE)
+        loss, scores = trainer.train_step(batch)
+        steps[name] = (float(loss), scores.cpu()[batch.graph_mask])
+    (l_flat, s_flat), (l_block, s_block) = steps["flat"], steps["block"]
+    d_scores = (s_flat - s_block).abs().max().item()
+    print(f"flat vs block on the card, one {task} step over {g} graphs "
+          f"(flat n_pad={n_flat} e_pad={e_flat}; block n_pad={n_pad} "
+          f"e_pad={e_pad}): loss {l_flat:.6f} vs {l_block:.6f}, "
+          f"|loss diff| {abs(l_flat - l_block):.3g}, max |score diff| "
+          f"{d_scores:.3g}")
+    if not (torch.allclose(s_block, s_flat, rtol=STEP_RTOL, atol=STEP_ATOL)
+            and math.isclose(l_block, l_flat, rel_tol=STEP_RTOL)):
+        fail("the flat and the block layout disagree on the card")
 
 
 def training_phase(torch):
@@ -900,22 +996,97 @@ def training_phase(torch):
         net, p = model.cfg, cfg.params
         n_ext = path.extremes_layers * towers_of(net)
         step_profile(
-            torch, trainer, batches * math.ceil(MIN_STEPS / len(batches)),
+            torch, trainer.train_step,
+            batches * math.ceil(MIN_STEPS / len(batches)),
             f"{key}, {net.type_net} hidden {net.hidden_dim} L={net.L}, batch "
             f"{p.batch_size} in {train.micro_batches} micro-batch(es), "
             f"dropout {net.dropout}, n_pad={train.n_pad} e_pad={train.e_pad} "
             f"pairs={train.pair_pad}{', ' if path.flags else ''}"
             f"{' '.join(path.flags)}",
-            {"build_pair_adjacency": adjacency_builds(net),
+            {"build_pair_adjacency": adjacency_builds(net, is_flat(path)),
              "segment_extremes_fwd": n_ext, "segment_extremes_bwd": n_ext})
         # dropout 0: the CPU and CUDA generators draw different masks
         cpu_vs_card(torch, cfg.task, dataclasses.replace(
             model.cfg, dropout=0.0, in_feat_dropout=0.0), ds, p, batches[0])
         if key == "zinc":
             softmax_check(torch, cfg.task, model.cfg, ds, p, batches[0])
+        if key == "zinc-flat":
+            flat_vs_block(torch, cfg.task, model.cfg, ds, p)
         del ds, model, trainer, loaders, batches
         torch.cuda.empty_cache()
     return out, nets
+
+
+def collab_phase(torch, np):
+    """COLLAB link prediction through the entry point with every launch
+    counter at 0 before and required at 0 after (one flat graph: no
+    kernel), its report checked (Hits@K in [0, 1]); then MIN_STEPS train
+    steps timed and profiled, and one step from identical weights and
+    identical positive and negative edges on the CPU and on the card.
+    Returns the run's launches."""
+    from dgn_tpu_torch import run
+    from dgn_tpu_torch.config import config_from_args
+    argv = ["--dataset", "COLLAB", "--synthetic_size", str(COLLAB_NODES)]
+    counters = launch_counters()
+    n_loads = len(_LOADS)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.time()
+    report = run.run(argv + ["--epochs", str(EPOCHS), "--device", DEVICE])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    print(f"path collab: dgn_tpu_torch.run {' '.join(argv)} --epochs "
+          f"{EPOCHS} -> {wall:.1f}s, best val hits@50 "
+          f"{report['best_val_hits@50']}, test at best "
+          f"{report['test_at_best_val']}, launches {launches} (expected 0)")
+    if len(_LOADS) != n_loads + 1:
+        fail("collab: the run did not load its dataset once through "
+             "share_datasets' cache")
+    if any(launches.values()):
+        fail(f"collab: kernel launches {launches} on the flat layout")
+    hits = [report["best_val_hits@50"], *report["test_at_best_val"].values()]
+    if not all(0.0 <= v <= 1.0 for v in hits):
+        fail(f"collab: Hits@K out of [0, 1]: {report}")
+
+    cfg, _ = config_from_args(argv)
+    gb, splits, trainer = run.prepare_collab(cfg, DEVICE)
+    net = trainer.model.backbone.cfg
+    train = splits["train"]
+    bs = trainer.edge_batch
+    # the batches of one epoch, the last short one filled from the head of
+    # the order, as LinkPredTrainer.train_epoch draws them
+    n_batches = max(len(train) // bs, 1)
+    order = np.resize(np.random.default_rng(cfg.params.seed).permutation(
+        len(train)), n_batches * bs)
+    batches = [torch.as_tensor(train[order[i * bs:(i + 1) * bs]],
+                               device=DEVICE) for i in range(n_batches)]
+    step_profile(
+        torch, lambda pos: trainer.train_step(gb, pos),
+        batches * math.ceil(MIN_STEPS / len(batches)),
+        f"collab, {net.type_net} hidden {net.hidden_dim} L={net.L}, one "
+        f"graph of {gb.num_nodes_padded} nodes and {gb.num_edges_padded} "
+        f"edges, edge batch {bs}", {name: 0 for name in counters})
+
+    # the CPU and the card from the same weights, edges and negatives
+    sides = [run.prepare_collab(cfg, dev) for dev in ("cpu", DEVICE)]
+    n_real = int(gb.real_node_count())
+    pos = torch.as_tensor(train[order[:bs]])
+    neg = torch.as_tensor(np.random.default_rng(7).integers(
+        0, n_real, size=(bs, 2)))
+    out, calls = [], []
+    for gb_s, _, t in sides:
+        calls.append([])
+        with recording_kinks(torch, calls[-1]):
+            out.append(t.train_step(gb_s, pos, neg))
+    (l_cpu, s_cpu), (l_gpu, s_gpu) = out
+    check_step(torch, f"one collab step over {bs} positive and {bs} "
+               "negative edges", l_cpu, l_gpu,
+               [(a, b.cpu()) for a, b in zip(s_cpu, s_gpu)],
+               param_report(torch, sides[0][2].model, sides[1][2].model,
+                            cfg.params.init_lr),
+               kinks_crossed(torch, *calls))
+    return launches
 
 
 def main() -> None:
@@ -961,14 +1132,16 @@ def main() -> None:
         print(f"card: {card_line()}")
         return
     launches, nets = training_phase(torch)
+    launches["collab"] = collab_phase(torch, np)
     # `launches` is the kernel's count on the path whose shape the entry
-    # timed ("path"); the counts of every path stand beside it
+    # timed ("path"); the counts of every path stand beside it (COLLAB's
+    # checked to be 0 in collab_phase)
     for kern in kernels:
         counter = kern["name"].split("@")[0]
         kern["launches"] = launches[kern["path"]][counter]
         kern["launches_by_path"] = {p: c[counter] for p, c in launches.items()}
         for path in PATHS:
-            runs = (adjacency_builds(nets[path.key])
+            runs = (adjacency_builds(nets[path.key], is_flat(path))
                     if counter == "build_pair_adjacency"
                     else path.extremes_layers)
             n = kern["launches_by_path"][path.key]

@@ -27,7 +27,7 @@ class DataParams:
     coord_eig: bool = False       # superpixels only
     proportion: float = 1.0       # superpixels only
     synthetic_size: int = 512     # graphs per split in the synthetic fallback
-    layout: str = "auto"          # auto = mxu, the block layout
+    layout: str = "auto"          # flat | mxu | auto (= mxu, the block one)
     n_buckets: int = 1
     geometry: str = "typical"     # pad sizing of the shuffled train loader
     micro_batches: Any = "auto"   # auto = ceil(batch_size / 1024)
@@ -55,6 +55,8 @@ class ExperimentConfig:
             return "hiv"
         if d == "PCBA":
             return "pcba"
+        if d == "COLLAB":
+            return "collab"
         raise NotImplementedError(f"dataset {self.dataset!r} is not ported yet")
 
 

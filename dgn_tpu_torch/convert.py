@@ -6,7 +6,9 @@ dicts of numpy arrays, as `model.init(...)` of `dgn_tpu` gives them
 `embedding_h/embedding`, the edge encoder's `embedding_e/embedding`,
 `embedding_e/{kernel,bias}` or `embedding_e/bond/emb_i`,
 `MLP_layer/Linear_j/kernel`, and batch_stats
-`layer_i/batchnorm_h/{mean,var}`).  The port's modules carry the same names
+`layer_i/batchnorm_h/{mean,var}`), or of dgn_tpu's COLLAB model
+(train/link_pred.py: the same tree under `backbone/`, without MLP_layer,
+beside `predictor/Linear_j/{kernel,bias}`).  The port's modules carry the same names
 and layouts (kernels [in, out]), so the mapping is by name: a torch entry
 `a.b.c` reads the flax path `a/b/c`.  One level has no torch counterpart:
 the reference's LinearParams holds its kernel and bias in a child

@@ -1,8 +1,9 @@
 """Dataset registry (counterpart of `dgn_tpu/data/datasets.py`).
 
 The synthetic branches of ZINC, the SBM datasets (PATTERN, CLUSTER), the
-superpixel datasets (MNIST, CIFAR10) and ogbg-molhiv/molpcba are ported:
-when `data_dir` holds no dataset files, three synthetic splits stand in,
+superpixel datasets (MNIST, CIFAR10), ogbg-molhiv/molpcba and ogbl-collab
+(`load_collab`) are ported: when `data_dir` holds no dataset files, three
+synthetic splits (for COLLAB one graph and its edge splits) stand in,
 generated exactly as the reference package generates them.  Real files
 raise: their readers wait until a dataset file is available to test them
 against.  With pos_enc_dim > 0 ZINC stores pos_enc = eig[:, 1:P+1] per
@@ -127,6 +128,22 @@ def load_ogb(name: str, dp) -> DatasetSplits:
     return DatasetSplits(name, gen(n, 1), gen(max(n // 10, 16), 2),
                          gen(max(n // 10, 16), 3),
                          meta={"n_tasks": n_tasks})
+
+
+def load_collab(dp, k_eig: int = 3):
+    """ogbl-collab link prediction: (one GraphData, edge splits, meta).  The
+    synthetic community graph of max(synthetic_size, 128) nodes, seed 1;
+    splits map train/valid/test to positive [K, 2] edges and
+    valid_neg/test_neg to fixed negatives; meta holds in_dim (the float
+    node feature width) and num_nodes."""
+    root = os.path.join(dp.data_dir, "ogbl_collab") if dp.data_dir else ""
+    if root and os.path.exists(os.path.join(root, "raw")):
+        raise NotImplementedError("the ogbl-collab reader is not ported yet; "
+                                  "leave data_dir empty for synthetic COLLAB")
+    g, splits = synthetic.synthetic_collab(
+        num_nodes=max(dp.synthetic_size, 128), seed=1, k_eig=k_eig)
+    return g, splits, {"in_dim": g.node_feat.shape[-1],
+                       "num_nodes": g.num_nodes}
 
 
 def load_dataset(name: str, dp) -> DatasetSplits:

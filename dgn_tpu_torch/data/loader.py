@@ -1,10 +1,12 @@
-"""Host-side batch loader (counterpart of `dgn_tpu/data/loader.py:BatchLoader`,
-block layout only).
+"""Host-side batch loader (counterpart of
+`dgn_tpu/data/loader.py:BatchLoader`).
 
 Shuffle with numpy's default_rng(seed) (the same stream as the reference
-package, so both see the same batches), order each batch by descending node
-count (block placement is next-fit and order-sensitive), and pack it at a
-fixed per-loader geometry.  A batch that overflows that geometry is repacked
+package, so both see the same batches), under the block layout order each
+batch by descending node count (block placement is next-fit and
+order-sensitive), and pack it at a fixed per-loader geometry: the flat
+layout (`layout="flat"`, the default, as in dgn_tpu) or the block one
+(`layout="mxu"`).  A batch that overflows that geometry is repacked
 at its exact need ("escape").  With micro_batches=K each batch is yielded as
 a list of K packed micro-batches (the trainer accumulates their gradients
 into one step).  The bucketed loader is not ported yet.
@@ -15,40 +17,73 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from ..graph import (GraphBatch, GraphData, mxu_bucket_sizes, mxu_pair_pad,
-                     mxu_pairs_needed, pack_graphs, pack_requirements,
-                     round_up, typical_bucket_sizes)
+from ..graph import (GraphBatch, GraphData, bucket_sizes_for,
+                     mxu_bucket_sizes, mxu_pair_pad, mxu_pairs_needed,
+                     pack_graphs, pack_requirements, round_up,
+                     typical_bucket_sizes)
+
+LAYOUTS = ("flat", "mxu")
 
 
-def _exact_geometry(graphs, batch_size: int):
+def _worst_geometry(graphs, batch_size: int, layout: str):
+    if layout == "mxu":
+        return mxu_bucket_sizes(graphs, batch_size)[:2]
+    return bucket_sizes_for(graphs, batch_size)
+
+
+def _exact_geometry(graphs, batch_size: int, layout: str):
     """Max requirement over the FIXED (unshuffled) batch partition."""
     need_n = need_e = 1
     for i in range(0, len(graphs), batch_size):
-        n_used, e_used = pack_requirements(graphs[i:i + batch_size])
+        n_used, e_used = pack_requirements(graphs[i:i + batch_size],
+                                           layout == "mxu")
         need_n = max(need_n, n_used)
         need_e = max(need_e, e_used)
     return round_up(need_n + 1, 128), round_up(need_e, 128)
 
 
-def _escape_pack(batch, g_pad: int, base_n: int, base_e: int) -> GraphBatch:
-    """Repack an oversized batch at its EXACT requirement (never fails),
-    rounded coarsely so repeated escapes reuse a handful of shapes."""
-    n_req, e_req = pack_requirements(batch)
-    return pack_graphs(batch, n_pad=round_up(max(n_req + 1, base_n), 512),
-                       e_pad=round_up(max(e_req, base_e), 512), g_pad=g_pad,
-                       mxu_layout=True,
-                       n_pairs_pad=round_up(mxu_pairs_needed(batch), 64))
+def _order_for_layout(batch, layout: str):
+    """Descending node count under the block layout (placement is next-fit
+    and every geometry estimate simulates that order); the flat layout
+    keeps the drawn order."""
+    if layout == "mxu":
+        return sorted(batch, key=lambda g: -g.num_nodes)
+    return list(batch)
+
+
+def _pack_at(batch, layout: str, n_pad: int, e_pad: int, g_pad: int,
+             pair_pad) -> GraphBatch:
+    return pack_graphs(batch, n_pad=n_pad, e_pad=e_pad, g_pad=g_pad,
+                       mxu_layout=layout == "mxu", n_pairs_pad=pair_pad)
+
+
+def _escape_pad(parts, layout: str, base_n: int, base_e: int):
+    """One coarse geometry (n_pad, e_pad, pair pad) that fits every part at
+    its EXACT requirement, rounded so repeated escapes reuse a handful of
+    shapes."""
+    need = [pack_requirements(p, layout == "mxu") for p in parts]
+    n_pad = round_up(max(max(n for n, _ in need) + 1, base_n), 512)
+    e_pad = round_up(max(max(e for _, e in need), base_e), 512)
+    pair_pad = (round_up(max(mxu_pairs_needed(p) for p in parts), 64)
+                if layout == "mxu" else None)
+    return n_pad, e_pad, pair_pad
 
 
 class BatchLoader:
     def __init__(self, graphs: Sequence[GraphData], batch_size: int,
                  shuffle: bool = False, seed: int = 0,
-                 geometry: str = "worst", cache: bool = False,
-                 micro_batches: int = 1):
-        """geometry of the shuffled loader's pads:
-          'worst'   — any-subset bound; every batch fits by construction;
+                 layout: Optional[str] = None, geometry: str = "worst",
+                 cache: bool = False, micro_batches: int = 1):
+        """layout: 'flat' (None, the default) or 'mxu' (graph.pack_graphs).
+        A flat loader's graph axis is the micro-batch size and it has no
+        pair pad; a block one's is 128-aligned.
+
+        geometry of the shuffled loader's pads:
+          'worst'   — any-subset bound of the layout; every flat batch fits
+                      by construction (block placement is order-sensitive,
+                      so there it is an estimate);
           'typical' — sized for typical shuffled batches; a rare oversized
-                      batch is repacked at its exact need.
+                      batch is repacked at its exact need ("escape").
         Unshuffled loaders without micro-batching take the EXACT max over
         their fixed partition.
 
@@ -63,25 +98,32 @@ class BatchLoader:
         micro-batched too, as dgn_tpu/run.py:162-168 builds them: an eval
         batch then runs as K forward passes, each with the loss of its own
         micro-batch (the reference evaluates a batch as one)."""
+        layout = layout or "flat"
+        if layout not in LAYOUTS:
+            raise ValueError(f"unknown layout {layout!r}")
         if geometry not in ("worst", "typical"):
             raise ValueError(f"unknown geometry {geometry!r}")
         self.graphs = list(graphs)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.rng = np.random.default_rng(seed)
+        self.layout = layout
         self.micro_batches = max(int(micro_batches), 1)
         micro = -(-batch_size // self.micro_batches)
-        self.g_pad = round_up(micro, 128)
+        self.g_pad = round_up(micro, 128) if layout == "mxu" else micro
         self.n_escapes = 0
         if not shuffle and self.micro_batches == 1:
-            self.n_pad, self.e_pad = _exact_geometry(self.graphs, batch_size)
+            self.n_pad, self.e_pad = _exact_geometry(self.graphs, batch_size,
+                                                     layout)
         elif geometry == "typical":
             self.n_pad, self.e_pad = typical_bucket_sizes(
-                self.graphs, micro, seed=seed)
+                self.graphs, micro, mxu_layout=layout == "mxu", seed=seed)
         else:
-            self.n_pad, self.e_pad = mxu_bucket_sizes(self.graphs, micro)[:2]
-        self.pair_pad = mxu_pair_pad(self.graphs, micro, self.n_pad,
-                                     self.e_pad)
+            self.n_pad, self.e_pad = _worst_geometry(self.graphs, micro,
+                                                     layout)
+        self.pair_pad = (mxu_pair_pad(self.graphs, micro, self.n_pad,
+                                      self.e_pad)
+                         if layout == "mxu" else None)
         self.cache = cache and not shuffle
         self._cached: Optional[List[GraphBatch]] = None
 
@@ -90,33 +132,32 @@ class BatchLoader:
 
     def _pack_one(self, batch) -> GraphBatch:
         try:
-            return pack_graphs(batch, n_pad=self.n_pad, e_pad=self.e_pad,
-                               g_pad=self.g_pad, mxu_layout=True,
-                               n_pairs_pad=self.pair_pad)
+            return _pack_at(batch, self.layout, self.n_pad, self.e_pad,
+                            self.g_pad, self.pair_pad)
         except ValueError:
-            # block placement is order-sensitive, so even the worst-case
-            # estimate is not a true bound
+            # a typical geometry is not a bound, and under the block layout
+            # neither is the worst-case estimate
             self.n_escapes += 1
-            return _escape_pack(batch, self.g_pad, self.n_pad, self.e_pad)
+            n_pad, e_pad, pair_pad = _escape_pad([batch], self.layout,
+                                                 self.n_pad, self.e_pad)
+            return _pack_at(batch, self.layout, n_pad, e_pad, self.g_pad,
+                            pair_pad)
 
     def _pack_micros(self, batch) -> List[GraphBatch]:
-        """batch (size-sorted) -> K packed micro-batches dealt round-robin,
-        all at one geometry: the loader's, or, when any overflows it, one
-        shared coarse geometry that fits every one of them."""
+        """batch (size-sorted under the block layout) -> K packed
+        micro-batches dealt round-robin, all at one geometry: the loader's,
+        or, when any overflows it, one shared coarse geometry that fits
+        every one of them."""
         parts = [p for p in (batch[k::self.micro_batches]
                              for k in range(self.micro_batches)) if p]
         try:
-            return [pack_graphs(p, n_pad=self.n_pad, e_pad=self.e_pad,
-                                g_pad=self.g_pad, mxu_layout=True,
-                                n_pairs_pad=self.pair_pad) for p in parts]
+            return [_pack_at(p, self.layout, self.n_pad, self.e_pad,
+                             self.g_pad, self.pair_pad) for p in parts]
         except ValueError:
             self.n_escapes += 1
-        need = [pack_requirements(p) for p in parts]
-        n_pad = round_up(max(max(n for n, _ in need) + 1, self.n_pad), 512)
-        e_pad = round_up(max(max(e for _, e in need), self.e_pad), 512)
-        pair_pad = round_up(max(mxu_pairs_needed(p) for p in parts), 64)
-        return [pack_graphs(p, n_pad=n_pad, e_pad=e_pad, g_pad=self.g_pad,
-                            mxu_layout=True, n_pairs_pad=pair_pad)
+        n_pad, e_pad, pair_pad = _escape_pad(parts, self.layout, self.n_pad,
+                                             self.e_pad)
+        return [_pack_at(p, self.layout, n_pad, e_pad, self.g_pad, pair_pad)
                 for p in parts]
 
     def __iter__(self):
@@ -129,8 +170,8 @@ class BatchLoader:
             self.rng.shuffle(idx)
         bs = self.batch_size
         for i in range(0, len(idx), bs):
-            batch = sorted((self.graphs[j] for j in idx[i:i + bs]),
-                           key=lambda g: -g.num_nodes)
+            batch = _order_for_layout([self.graphs[j] for j in idx[i:i + bs]],
+                                      self.layout)
             gb = (self._pack_one(batch) if self.micro_batches == 1
                   else self._pack_micros(batch))
             if out is not None:

@@ -1,13 +1,13 @@
 """Synthetic datasets (counterpart of `dgn_tpu/data/synthetic.py`:
-`synthetic_zinc`, `synthetic_sbm`, `synthetic_superpixels` and
-`synthetic_ogb_mol`).
+`synthetic_zinc`, `synthetic_sbm`, `synthetic_superpixels`,
+`synthetic_ogb_mol` and `synthetic_collab`).
 
 The same generators and numpy seed streams as the reference package, so both
 produce identical graphs with learnable structure-dependent targets:
 valence-bounded molecules with integer atom and bond features (a scalar for
 ZINC, binary labels for ogbg-molhiv/molpcba), PATTERN-like SBM graphs with
-node labels, and superpixel-like kNN graphs with float node features and a
-class label.
+node labels, superpixel-like kNN graphs with float node features and a
+class label, and one large community graph with link-prediction splits.
 """
 from __future__ import annotations
 
@@ -221,3 +221,55 @@ def synthetic_ogb_mol(num_graphs: int, seed: int = 0, n_tasks: int = 1,
             label[rng.random(n_tasks) < nan_frac] = np.nan
         g.label = label
     return out
+
+
+def synthetic_collab(num_nodes: int = 400, seed: int = 0, k_eig: int = 4,
+                     avg_deg: int = 8, n_communities: int = 12,
+                     feat_dim: int = 8):
+    """One large COLLAB-like graph for link prediction: community structure
+    (so held-out intra-community edges are learnable), float node features,
+    and edge splits.  Returns (GraphData, splits) where splits maps
+    'train'/'valid'/'test' to positive [K, 2] edge arrays and
+    'valid_neg'/'test_neg' to sampled negatives (the ogbl-collab protocol).
+    The message-passing graph is the train edges, both directions.  Its
+    eig is the dense eigensolve of spectral.graph_eig, whose cost grows as
+    num_nodes^3."""
+    rng = np.random.default_rng(seed)
+    comm = rng.integers(0, n_communities, num_nodes)
+    und = set()
+    target = num_nodes * avg_deg // 2
+    while len(und) < target:
+        if rng.random() < 0.8:     # intra-community
+            c = rng.integers(0, n_communities)
+            members = np.nonzero(comm == c)[0]
+            if len(members) < 2:
+                continue
+            u, v = rng.choice(members, 2, replace=False)
+        else:
+            u, v = rng.integers(0, num_nodes, 2)
+        if u != v:
+            und.add((min(u, v), max(u, v)))
+    und = np.array(sorted(und))
+    rng.shuffle(und)
+    n_val = n_test = max(len(und) // 10, 1)
+    test_pos, val_pos, train_pos = (und[:n_test], und[n_test:n_test + n_val],
+                                    und[n_test + n_val:])
+    src = np.concatenate([train_pos[:, 0], train_pos[:, 1]]).astype(np.int32)
+    dst = np.concatenate([train_pos[:, 1], train_pos[:, 0]]).astype(np.int32)
+    feat = (np.eye(n_communities, feat_dim)[comm] * 0.5
+            + rng.normal(0, 0.3, (num_nodes, feat_dim))).astype(np.float32)
+    eig = spectral.graph_eig(num_nodes, src, dst, k_eig, "none")
+    g = GraphData(num_nodes=num_nodes, src=src, dst=dst, node_feat=feat,
+                  eig=eig, edge_feat=np.ones((len(src), 1), np.float32),
+                  label=np.array([0.0], np.float32))
+
+    def negs(n):
+        e = rng.integers(0, num_nodes, (n, 2))
+        return e[e[:, 0] != e[:, 1]].astype(np.int64)
+
+    splits = dict(train=train_pos.astype(np.int64),
+                  valid=val_pos.astype(np.int64),
+                  test=test_pos.astype(np.int64),
+                  valid_neg=negs(len(val_pos) * 4),
+                  test_neg=negs(len(test_pos) * 4))
+    return g, splits

@@ -5,10 +5,15 @@ copied from the reference package so the two produce identical arrays for
 the same graphs; only the container changes (a dataclass of torch tensors
 with `.to(device)` instead of a JAX pytree).
 
-This slice carries the block ("mxu") layout only: nodes are placed so no
-graph straddles a 128-node block, edges are chunked per (src_block,
-dst_block) pair, and the graph axis is 128-aligned (`ops/mxu.py`).  The flat
-packing, the native packer and the halo spec are not ported yet.
+Two layouts, as there.  Flat (`mxu_layout=False`, the default): graphs
+follow one another on the node axis, real edges are stable-sorted by
+(dst, src) and pad edges go last, pointing at the last node slot (the
+"ghost" node the flat geometry helpers reserve); the segment ops of
+`ops/segment.py` reduce over that edge list.  Block ("mxu"): nodes are
+placed so no graph straddles a 128-node block, edges are chunked per
+(src_block, dst_block) pair, and the graph axis is 128-aligned
+(`ops/mxu.py`).  The native packer and the halo spec are not ported: the
+flat numpy path here gives the arrays dgn_tpu's native packer gives.
 """
 from __future__ import annotations
 
@@ -72,6 +77,12 @@ class GraphBatch:
     def num_graphs_padded(self) -> int:
         return self.graph_mask.shape[0]
 
+    def real_edge_count(self) -> torch.Tensor:
+        return self.edge_mask.sum(dtype=torch.int32)
+
+    def real_node_count(self) -> torch.Tensor:
+        return self.node_mask.sum(dtype=torch.int32)
+
     def to(self, device) -> "GraphBatch":
         """A copy with every tensor (and the layout and context) on device."""
         return GraphBatch(**{f.name: _move(getattr(self, f.name), device)
@@ -103,14 +114,123 @@ def pack_graphs(graphs: Sequence[GraphData], *,
                 k_eig: Optional[int] = None,
                 mxu_layout: bool = False,
                 n_pairs_pad: Optional[int] = None) -> GraphBatch:
-    """Pack graphs into one fixed-shape GraphBatch on the CPU.
+    """Pack graphs into one fixed-shape GraphBatch on the CPU, under the
+    block layout when mxu_layout, else flat (dgn_tpu/graph.py:178-332).
+    Flat pads default to the exact totals (no pad node, no pad edge)."""
+    if mxu_layout:
+        return _pack_graphs_mxu(graphs, n_pad=n_pad, e_pad=e_pad,
+                                g_pad=g_pad, k_eig=k_eig,
+                                n_pairs_pad=n_pairs_pad)
+    return _pack_graphs_flat(graphs, n_pad=n_pad, e_pad=e_pad, g_pad=g_pad,
+                             k_eig=k_eig)
 
-    Only the block layout is ported; `mxu_layout=False` raises."""
-    if not mxu_layout:
-        raise NotImplementedError(
-            "the flat layout is not ported yet; pass mxu_layout=True")
-    return _pack_graphs_mxu(graphs, n_pad=n_pad, e_pad=e_pad, g_pad=g_pad,
-                            k_eig=k_eig, n_pairs_pad=n_pairs_pad)
+
+def _tensors(x):
+    return None if x is None else torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _pack_graphs_flat(graphs: Sequence[GraphData], *, n_pad: Optional[int],
+                      e_pad: Optional[int], g_pad: Optional[int],
+                      k_eig: Optional[int]) -> GraphBatch:
+    """pack_graphs under the flat layout: graphs back to back, snorm_n and
+    snorm_e per graph, real edges stable-sorted by (dst, src) with the pad
+    edges after them at src = dst = n_pad - 1, in_degree over real edges."""
+    g = len(graphs)
+    tot_n = sum(gr.num_nodes for gr in graphs)
+    tot_e = sum(gr.num_edges for gr in graphs)
+    n_pad = int(n_pad if n_pad is not None else tot_n)
+    e_pad = int(e_pad if e_pad is not None else max(tot_e, 1))
+    g_pad = int(g_pad if g_pad is not None else g)
+    if tot_n > n_pad or tot_e > e_pad or g > g_pad:
+        raise ValueError(
+            f"pack overflow: need (n={tot_n}, e={tot_e}, g={g}) "
+            f"but pad sizes are (n={n_pad}, e={e_pad}, g={g_pad})")
+    if k_eig is None:
+        k_eig = (graphs[0].eig.shape[1]
+                 if graphs and graphs[0].eig is not None else 0)
+
+    nf0 = graphs[0].node_feat
+    nf_dtype = nf0.dtype if nf0.dtype.kind == "f" else np.int32
+    node_feat = np.zeros((n_pad,) + tuple(nf0.shape[1:]), dtype=nf_dtype)
+    node_mask = np.zeros((n_pad,), dtype=bool)
+    node_graph = np.full((n_pad,), max(g_pad - 1, 0), dtype=np.int32)
+    eig = np.zeros((n_pad, k_eig), dtype=np.float32)
+    snorm_n = np.zeros((n_pad, 1), dtype=np.float32)
+    src = np.zeros((e_pad,), dtype=np.int32)
+    dst = np.zeros((e_pad,), dtype=np.int32)
+    edge_mask = np.zeros((e_pad,), dtype=bool)
+    snorm_e = np.zeros((e_pad, 1), dtype=np.float32)
+    has_ef = graphs[0].edge_feat is not None
+    edge_feat = None
+    if has_ef:
+        ef0 = graphs[0].edge_feat
+        ef_dtype = ef0.dtype if ef0.dtype.kind == "f" else np.int32
+        edge_feat = np.zeros((e_pad,) + tuple(ef0.shape[1:]), dtype=ef_dtype)
+    graph_mask = np.zeros((g_pad,), dtype=bool)
+    n_nodes = np.zeros((g_pad,), dtype=np.int32)
+    n_edges = np.zeros((g_pad,), dtype=np.int32)
+    has_label = graphs[0].label is not None
+    labels = None
+    if has_label:
+        lb0 = np.asarray(graphs[0].label)
+        labels = np.zeros((g_pad,) + lb0.shape, dtype=(
+            np.float32 if lb0.dtype.kind == "f" else lb0.dtype))
+    has_nl = graphs[0].node_labels is not None
+    node_labels = np.zeros((n_pad,), dtype=np.int32) if has_nl else None
+    has_pe = graphs[0].pos_enc is not None
+    pos_enc = (np.zeros((n_pad, graphs[0].pos_enc.shape[1]), np.float32)
+               if has_pe else None)
+
+    n_off = e_off = 0
+    for gi, gr in enumerate(graphs):
+        n, e = gr.num_nodes, gr.num_edges
+        sl_n = slice(n_off, n_off + n)
+        sl_e = slice(e_off, e_off + e)
+        node_feat[sl_n] = gr.node_feat
+        node_mask[sl_n] = True
+        node_graph[sl_n] = gi
+        if k_eig and gr.eig is not None:
+            eig[sl_n, : gr.eig.shape[1]] = gr.eig[:, :k_eig]
+        snorm_n[sl_n] = np.sqrt(1.0 / max(n, 1))
+        src[sl_e] = np.asarray(gr.src, dtype=np.int32) + n_off
+        dst[sl_e] = np.asarray(gr.dst, dtype=np.int32) + n_off
+        edge_mask[sl_e] = True
+        snorm_e[sl_e] = np.sqrt(1.0 / max(e, 1))
+        if has_ef:
+            edge_feat[sl_e] = gr.edge_feat
+        graph_mask[gi] = True
+        n_nodes[gi] = n
+        n_edges[gi] = e
+        if has_label:
+            labels[gi] = np.asarray(gr.label)
+        if has_nl:
+            node_labels[sl_n] = gr.node_labels
+        if has_pe:
+            pos_enc[sl_n] = gr.pos_enc
+        n_off += n
+        e_off += e
+
+    # real edges by (dst, src), stable; the pad edges (mask False) after
+    # them, pointing at the last node so the dst sequence stays monotone
+    order = np.lexsort((src, dst, ~edge_mask))
+    src, dst, edge_mask, snorm_e = (src[order], dst[order], edge_mask[order],
+                                    snorm_e[order])
+    if has_ef:
+        edge_feat = edge_feat[order]
+    src[~edge_mask] = n_pad - 1
+    dst[~edge_mask] = n_pad - 1
+
+    in_degree = np.zeros((n_pad,), dtype=np.int32)
+    np.add.at(in_degree, dst[edge_mask], 1)
+
+    t = _tensors
+    return GraphBatch(
+        node_feat=t(node_feat), node_mask=t(node_mask),
+        node_graph=t(node_graph), eig=t(eig), in_degree=t(in_degree),
+        snorm_n=t(snorm_n), src=t(src), dst=t(dst), edge_mask=t(edge_mask),
+        edge_feat=t(edge_feat), snorm_e=t(snorm_e), graph_mask=t(graph_mask),
+        n_nodes=t(n_nodes), n_edges=t(n_edges), labels=t(labels),
+        node_labels=t(node_labels), pos_enc=t(pos_enc))
 
 
 def round_up(x: int, m: int) -> int:
@@ -187,6 +307,19 @@ def mxu_bucket_sizes(graphs: Sequence[GraphData], batch_size: int,
     n_pad = round_up(int(n_used * slack) + _TILE, _TILE)
     e_pad = round_up(int(e_used * slack) + _TILE, _TILE)
     return n_pad, e_pad, round_up(batch_size, _TILE)
+
+
+def bucket_sizes_for(graphs: Sequence[GraphData], batch_size: int, *,
+                     node_multiple: int = 128,
+                     edge_multiple: int = 128) -> tuple[int, int]:
+    """(n_pad, e_pad) so ANY batch_size subset packs flat: the sums of the
+    batch_size largest graphs, the node count plus one for the ghost node
+    that pad edges point at, rounded up to the multiples."""
+    ns = np.sort(np.array([g.num_nodes for g in graphs]))[::-1]
+    es = np.sort(np.array([g.num_edges for g in graphs]))[::-1]
+    cn = int(ns[:batch_size].sum())
+    ce = int(max(es[:batch_size].sum(), 1))
+    return round_up(cn + 1, node_multiple), round_up(ce, edge_multiple)
 
 
 def _pack_graphs_mxu(graphs: Sequence[GraphData], *,
@@ -299,9 +432,7 @@ def _pack_graphs_mxu(graphs: Sequence[GraphData], *,
     layout = build_mxu_layout(src, dst, edge_mask, node_graph, node_mask,
                               n_pad, g_pad, n_pairs_pad=n_pairs_pad)
 
-    def t(x):
-        return None if x is None else torch.from_numpy(np.ascontiguousarray(x))
-
+    t = _tensors
     return GraphBatch(
         node_feat=t(node_feat), node_mask=t(node_mask),
         node_graph=t(node_graph), eig=t(eig), in_degree=t(in_degree),
@@ -342,9 +473,14 @@ def mxu_pair_pad(graphs: Sequence[GraphData], batch_size: int,
     return min(round_up(nb + off, 64), max(e_pad // _TILE, 1))
 
 
-def pack_requirements(batch: Sequence[GraphData]) -> tuple[int, int]:
-    """EXACT (n_used, e_used) slots the block layout needs for this batch,
-    packed in descending num_nodes order (the loader's order)."""
+def pack_requirements(batch: Sequence[GraphData],
+                      mxu_layout: bool = False) -> tuple[int, int]:
+    """EXACT (n_used, e_used) slots pack_graphs needs for this batch: flat,
+    the totals (nodes plus the ghost node); block, the placement of the
+    batch packed in descending num_nodes order (the loader's order)."""
+    if not mxu_layout:
+        tot_n = sum(g.num_nodes for g in batch)
+        return tot_n + 1, max(sum(g.num_edges for g in batch), 1)
     batch = sorted(batch, key=lambda g: -g.num_nodes)
     offsets, n_used = _mxu_place([g.num_nodes for g in batch])
     src = np.concatenate([np.asarray(g.src, np.int64) + offsets[i]
@@ -358,13 +494,14 @@ def pack_requirements(batch: Sequence[GraphData]) -> tuple[int, int]:
 
 
 def typical_bucket_sizes(graphs: Sequence[GraphData], batch_size: int, *,
-                         probe_epochs: int = 4, slack: float = 1.10,
-                         seed: int = 0, multiple: int = 128
-                         ) -> tuple[int, int]:
-    """(n_pad, e_pad) sized for TYPICAL shuffled batches: the max exact
-    requirement over `probe_epochs` simulated shuffles, plus slack, capped by
-    the worst-case bound.  A batch that still overflows makes pack_graphs
-    raise and the loader repacks it (data/loader.py)."""
+                         mxu_layout: bool = False, probe_epochs: int = 4,
+                         slack: float = 1.10, seed: int = 0,
+                         multiple: int = 128) -> tuple[int, int]:
+    """(n_pad, e_pad) sized for TYPICAL shuffled batches of the layout: the
+    max exact requirement over `probe_epochs` simulated shuffles, plus
+    slack, capped by the layout's worst-case bound.  A batch that still
+    overflows makes pack_graphs raise and the loader repacks it
+    (data/loader.py)."""
     rng = np.random.default_rng(seed)
     idx = np.arange(len(graphs))
     need_n = need_e = 1
@@ -372,10 +509,11 @@ def typical_bucket_sizes(graphs: Sequence[GraphData], batch_size: int, *,
         rng.shuffle(idx)
         for i in range(0, len(idx), batch_size):
             n_used, e_used = pack_requirements(
-                [graphs[j] for j in idx[i:i + batch_size]])
+                [graphs[j] for j in idx[i:i + batch_size]], mxu_layout)
             need_n = max(need_n, n_used)
             need_e = max(need_e, e_used)
     n_pad = round_up(int(need_n * slack) + 1, multiple)
     e_pad = round_up(int(need_e * slack), multiple)
-    worst = mxu_bucket_sizes(graphs, batch_size)
+    worst = (mxu_bucket_sizes(graphs, batch_size) if mxu_layout
+             else bucket_sizes_for(graphs, batch_size))
     return min(n_pad, worst[0]), min(e_pad, worst[1])

@@ -5,7 +5,11 @@ make_dgn_layer).
 Each layer takes one of two edge stages, as dgn_tpu decides it: the
 decomposed one when the EdgeContext the model attaches carries weight
 families (ctx.decomposed) and the pretrans is linear, else the per-edge
-message path.
+message path.  A layer used on its own, on a batch without a context,
+builds one as dgn_tpu's does (`_edge_context`): decomposed for the simple
+layer and a linear pretrans, else per-edge with the flat layout's
+normalizers.  Both stages run on the block layout (gb.mxu) and on the flat
+one (gb.mxu None); the aggregators pick their reductions from the layout.
 
 Decomposed.  Complex: with a linear pretrans over [h_src || h_dst (|| e)]
 the per-edge message splits as msg_e = g[src_e] + q[dst_e] (+ c_e) with
@@ -43,10 +47,12 @@ adjacency build serves every tower of every layer.
 The virtual node (reference nets/dgn_layer.py:12-49) pools each graph's
 nodes (mean, sum or logsum), adds the graph's state vn_h, runs an FCLayer
 (ReLU, dropout, masked BatchNorm over the real graphs), adds the residual to
-vn_h and the new vn_h to every node of its graph.
+vn_h and the new vn_h to every node of its graph.  On the block layout it
+pools with `mxu.graph_pool_sum` and broadcasts to the real nodes; on the
+flat one it pools with a masked segment_sum over node_graph and gathers
+vn_h[node_graph] for every node slot, as dgn_tpu does.
 
-Not ported yet: the flat layout, bf16 (compute_dtype) and the sync-BN axis
-(bn_axis).
+Not ported yet: bf16 (compute_dtype) and the sync-BN axis (bn_axis).
 """
 from __future__ import annotations
 
@@ -60,7 +66,7 @@ from ..nn import MLP, FCLayer, LinearParams, MaskedBatchNorm, dropout
 from ..ops import aggregators as agg_ops
 from ..ops import mxu
 from ..ops import scalers as scaler_ops
-from ..ops.segment import gather
+from ..ops.segment import gather, segment_sum
 
 
 def _linear_pretrans_parts(kernel, bias, h, e):
@@ -94,6 +100,18 @@ def _fused_posttrans(kernel, bias, h_in, h_agg, gb: GraphBatch,
     for i in range(s):
         out = out + cols[:, i:i + 1] * t[:, i * o:(i + 1) * o]
     return out
+
+
+def _edge_context(gb: GraphBatch, names, decomposed: bool):
+    """The EdgeContext the model attached, else one for this layer alone
+    (dgn_tpu/layers/dgn.py:47-79): decomposed, or per-edge with the flat
+    layout's normalizers."""
+    if gb.edge_ctx is not None:
+        return gb.edge_ctx
+    return agg_ops.build_edge_context(
+        gb.eig, gb.src, gb.dst, gb.edge_mask, gb.in_degree, names,
+        mxu_layout=gb.mxu, decomposed=decomposed,
+        need_norms=gb.mxu is None and not decomposed)
 
 
 class _DGNLayer(nn.Module):
@@ -166,7 +184,7 @@ class DGNLayerSimple(_DGNLayer):
     def forward(self, gb: GraphBatch, h: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 e: Optional[torch.Tensor] = None) -> torch.Tensor:
-        ctx = gb.edge_ctx
+        ctx = _edge_context(gb, self.aggregators, True)
         if ctx.decomposed:
             agg = agg_ops.aggregate_decomposed(self.aggregators, ctx, h, None,
                                                h, layout=gb.mxu)
@@ -199,7 +217,7 @@ class DGNLayerComplex(_DGNLayer):
     def forward(self, gb: GraphBatch, h: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 e: Optional[torch.Tensor] = None) -> torch.Tensor:
-        ctx = gb.edge_ctx
+        ctx = _edge_context(gb, self.aggregators, self.pretrans_layers == 1)
         if ctx.decomposed and self.pretrans_layers == 1:
             g_node, q_node, c_edge = _linear_pretrans_parts(
                 self.pretrans.kernel, self.pretrans.bias, h, e)
@@ -299,7 +317,9 @@ class VirtualNode(nn.Module):
 
     def forward(self, gb: GraphBatch, h: torch.Tensor, vn_h: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
-        pool = mxu.graph_pool_sum(h, gb.mxu, gb.num_graphs_padded)
+        g = gb.num_graphs_padded
+        pool = (mxu.graph_pool_sum(h, gb.mxu, g) if gb.mxu is not None
+                else segment_sum(h, gb.node_graph, g, gb.node_mask))
         if self.vn_type != "sum":
             n = gb.n_nodes.to(pool.dtype)[:, None]
             pool = torch.where(n > 0, pool / n.clamp_min(1.0), 0.0)
@@ -307,6 +327,8 @@ class VirtualNode(nn.Module):
                 pool = pool * torch.log(n.clamp_min(1.0))
         vn_tmp = self.fc_layer(vn_h + pool, gb.graph_mask, generator)
         vn_h = vn_h + vn_tmp if self.residual else vn_tmp
+        if gb.mxu is None:
+            return vn_h, h + gather(vn_h, gb.node_graph)
         return vn_h, h + mxu.graph_broadcast(vn_h, gb.node_graph,
                                              gb.node_mask)
 

@@ -7,14 +7,18 @@ pos_enc_dim > 0 -> L simple, complex or towers DGN layers ((L-1) at
 hidden_dim, the last at out_dim; reference molecules dgn_net.py:40-50),
 each ending in dropout, with the virtual node after each but the last when
 virtual_node is set (PCBA dgn_net.py:78-83) -> graph readout (mean, sum,
-max, directional, directional_abs) -> MLPReadout per graph, or MLPReadout
-per node (readout "node", SBM).  The batch-constant EdgeContext (eig
+max, directional, directional_abs) -> MLPReadout per graph, MLPReadout
+per node (readout "node", SBM), or the node embeddings themselves (readout
+"none", the link-prediction backbone of train/link_pred.py, with no
+MLP_layer).  The batch-constant EdgeContext (eig
 deltas, weight families, adjacency blocks) is built once per forward pass,
 from the batch's eig as it arrives (augmented in training), or reused when
 the batch arrives with one attached (the trainer's eval cache).  It is
 decomposed when cfg.decompose and the pretrans is linear (the simple layer
-has none); otherwise it holds the eig deltas only, every layer takes the
-per-edge message path and no adjacency is built.
+has none); otherwise it holds the eig deltas (and on the flat layout the
+directional normalizers), every layer takes the per-edge message path and
+no adjacency is built.  The flat layout (gb.mxu None) builds no adjacency
+at all.
 
 With edge_feat, the edge encoder embeds gb.edge_feat once per forward pass
 and every layer gets the embedding e: `embedding` (ZINC bond types, an
@@ -32,9 +36,8 @@ min(P, k_eig - 1); flax infers it, here the caller passes it (pos_enc_in).
 
 `DGNConfig` keeps the reference's full field set so the same JSON configs
 load; `DGNModel` raises NotImplementedError for any value the port does not
-cover yet (bf16 compute_dtype, the sync-BN bn_axis, readout "none"; the
-flat layout is refused by the entry point) instead of silently running
-something else.
+cover yet (bf16 compute_dtype, the sync-BN bn_axis) instead of silently
+running something else.
 """
 from __future__ import annotations
 
@@ -110,9 +113,6 @@ def check_ported(cfg: DGNConfig) -> None:
             raise NotImplementedError(
                 f"DGNConfig.{name}={getattr(cfg, name)!r} is not ported yet "
                 f"(the port runs {name}=None)")
-    if cfg.readout == "none":
-        raise NotImplementedError("readout 'none' (raw node embeddings) is "
-                                  "not ported yet")
     cfg.agg_names()             # KeyError for an unknown aggregator
 
 
@@ -126,10 +126,13 @@ def decomposes(cfg: DGNConfig) -> bool:
 
 def edge_context_for(gb: GraphBatch, cfg: DGNConfig) -> agg_ops.EdgeContext:
     """The EdgeContext DGNModel attaches.  It depends only on (eig, edges,
-    layout), not on the parameters, so fixed batches can reuse it."""
+    layout), not on the parameters, so fixed batches can reuse it.  The
+    flat per-edge path takes the directional normalizers (need_norms)."""
+    decomposed = decomposes(cfg)
     return agg_ops.build_edge_context(
         gb.eig, gb.src, gb.dst, gb.edge_mask, gb.in_degree,
-        names=cfg.agg_names(), mxu_layout=gb.mxu, decomposed=decomposes(cfg))
+        names=cfg.agg_names(), mxu_layout=gb.mxu, decomposed=decomposed,
+        need_norms=gb.mxu is None and not decomposed)
 
 
 class DGNModel(nn.Module):
@@ -206,14 +209,16 @@ class DGNModel(nn.Module):
         # concatenate two poolings
         if cfg.readout in ("directional", "directional_abs"):
             in_dim *= 2
-        self.MLP_layer = MLPReadout(
-            in_dim, cfg.n_out, generator, L=cfg.readout_L,
-            decreasing_dim=cfg.readout == "node" or cfg.decreasing_dim)
+        if cfg.readout != "none":
+            self.MLP_layer = MLPReadout(
+                in_dim, cfg.n_out, generator, L=cfg.readout_L,
+                decreasing_dim=cfg.readout == "node" or cfg.decreasing_dim)
 
     def forward(self, gb: GraphBatch,
                 dropout_generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        """[G, n_out] scores ([N, n_out] per node for readout "node").
+        """[G, n_out] scores ([N, n_out] per node for readout "node", the
+        [N, out_dim] node embeddings for readout "none").
         Batch norm and dropout follow self.training; dropout and input
         dropout in training draw their masks from dropout_generator, a
         torch.Generator on the model's device."""
@@ -233,6 +238,8 @@ class DGNModel(nn.Module):
             if self.use_vn and i < cfg.L - 1:
                 vn_h, h = getattr(self, f"virtual_node_{i}")(
                     gb, h, vn_h, dropout_generator)
+        if self.cfg.readout == "none":
+            return h
         if self.cfg.readout == "node":
             return self.MLP_layer(h)
         return self.MLP_layer(graph_readout(gb, h, self.cfg.readout))

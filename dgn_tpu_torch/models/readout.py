@@ -1,20 +1,25 @@
-"""Graph-level readouts over the block layout (counterpart of
+"""Graph-level readouts over either layout (counterpart of
 `dgn_tpu/models/readout.py`): dgl.{mean,sum,max}_nodes in the reference
 (nets/molecules_graph_regression/dgn_net.py:70-86), plus the directional
 readouts.  The reference's 'directional' weight h * eig1 / sum(|eig1|, dim=1)
 sums over a single column, so it is sign(eig1); that is what runs here (it
 also avoids the reference's 0/0 where eig1 == 0), and 'directional_abs'
-weighs by 1.  Unknown kinds fall through to mean, as in the reference."""
+weighs by 1.  Unknown kinds fall through to mean, as in the reference.
+Per-graph sums are `mxu.graph_pool_sum` on the block layout and a masked
+segment_sum over node_graph on the flat one."""
 from __future__ import annotations
 
 import torch
 
 from ..graph import GraphBatch
 from ..ops import mxu
+from ..ops.segment import segment_sum
 
 
 def _part_sum(gb: GraphBatch, h: torch.Tensor) -> torch.Tensor:
-    return mxu.graph_pool_sum(h, gb.mxu, gb.num_graphs_padded)
+    if gb.mxu is not None:
+        return mxu.graph_pool_sum(h, gb.mxu, gb.num_graphs_padded)
+    return segment_sum(h, gb.node_graph, gb.num_graphs_padded, gb.node_mask)
 
 
 def _part_mean(gb: GraphBatch, h: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""DGN aggregators on the block layout (PyTorch counterpart of
-`dgn_tpu/ops/aggregators.py`).
+"""DGN aggregators (PyTorch counterpart of `dgn_tpu/ops/aggregators.py`),
+on the block layout and on the flat one.
 
 Two paths share the formulas below.
 
@@ -11,27 +11,35 @@ incoming edges plus node-local terms with per-destination weight totals:
 
     sum_e w_e msg_e = S_w[v] + T_w[v] * q[v],   S_w = scatter(w * g[src])
 
-The weighted sums run as one batched dense product per layer against
-per-(src_block, dst_block) adjacency blocks (`mxu.pair_adj_matmul`), built
-once per forward pass by `build_edge_context` (`mxu.build_pair_adjacency`).
-The edge term c_e adds one scatter of c_e * w_e for every family
-(`mxu.weighted_segment_sums`).  With var or std and edge features,
-(g + c)^2 has a cross term, so the sums scatter ge = g[src] + c_e and ge^2
-instead.
+On the block layout the weighted sums run as one batched dense product per
+layer against per-(src_block, dst_block) adjacency blocks
+(`mxu.pair_adj_matmul`), built once per forward pass by
+`build_edge_context` (`mxu.build_pair_adjacency`).  The edge term c_e adds
+one scatter of c_e * w_e for every family (`mxu.weighted_segment_sums`).
+With var or std and edge features, (g + c)^2 has a cross term, so the sums
+scatter ge = g[src] + c_e and ge^2 instead.  On the flat layout there are
+no blocks: the columns ge * w_e of every family (and ge^2 for var/std) go
+through one `segment_sum` over dst, and max/min through the joint
+`segment.segment_extremes` (one of segment_max / segment_min when only one
+is asked for).
 
 Per-edge (`aggregate`): the messages are per-edge tensors (a pretrans MLP
-deeper than one layer, or decompose=False).  The weighted-sum aggregators
-run in one `mxu.weighted_segment_sums` scatter, max/min through the
-extremes kernel pair on the messages, the softmax families through
-`segment.segment_softmax`.  Its context holds no weight families and no
-adjacency blocks: nothing is built for it but the eig deltas.
+deeper than one layer, or decompose=False).  On the block layout the
+weighted-sum aggregators run in one `mxu.weighted_segment_sums` scatter,
+max/min through the extremes kernel pair on the messages, the softmax
+families through `segment.segment_softmax`.  On the flat layout every
+aggregator is its own segment op over the messages (`_agg_xla`), the
+directional ones normalised per edge by the context's abs_sum, pos_sum and
+neg_sum.  A per-edge context holds no weight families and no adjacency
+blocks.
 
 Formulas (reference nets/aggregators.py:35-71), d_e = eig_u[k] - eig_v[k],
 S_k(v) = sum_{e->v} |d_e|:
   mean/sum/var/std   : plain reductions of the messages
-  max/min            : per-destination max/min of the messages by the CUDA
-                       kernel pair (`ops/extremes.py`), 0 for nodes without
-                       an edge (decomposed: of ge, plus q[v])
+  max/min            : per-destination max/min of the messages, 0 for
+                       nodes without an edge (decomposed: of ge, plus
+                       q[v]); the CUDA kernel pair (`ops/extremes.py`) on
+                       the block layout, scatter_reduce on the flat one
   dir{k}-av          : sum_e |d_e| / (S_k(v)+EPS) * msg_e
   dir{k}-dx          : | sum_e d_e msg_e - (sum_e d_e) h_v | / (S_k(v)+EPS)
   dir{k}-dx-no-abs   : same, without the abs
@@ -39,9 +47,7 @@ S_k(v) = sum_{e->v} |d_e|:
   dir{k}-0.1 / -neg-0.1 : sum_e softmax_e(+-0.1 |d_e|) msg_e; the weights
                        sum to 1 at a node with an edge, to 0 without one
 
-Not ported yet, and raising NotImplementedError rather than falling back:
-the flat layout (with its separate segment ops per aggregator) and the
-edge-partitioned split; bf16 inputs (compute_dtype) are not taken.
+Not ported: the edge-partitioned split and bf16 inputs (compute_dtype).
 """
 from __future__ import annotations
 
@@ -51,7 +57,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from . import extremes, mxu
+from . import extremes, mxu, segment
 from .segment import EPS, gather, segment_softmax, segment_sum
 
 _DIR_RE = re.compile(
@@ -70,8 +76,11 @@ class EdgeContext:
     "abs{k}", "delta{k}", "pos{k}", "neg{k}", "sm{k}+", "sm{k}-");
     fam_tot: {key: [N]} their per-destination totals; adj: the
     [P, K, 128, 128] adjacency blocks of the families in adj_keys order
-    (None when no aggregator needs one).  A per-edge context (decomposed
-    off) has fam_w and fam_tot None, adj None and adj_keys empty."""
+    (None when no aggregator needs one, and always on the flat layout).  A
+    per-edge context (decomposed off) has fam_w and fam_tot None, adj None
+    and adj_keys empty.  abs_sum, pos_sum, neg_sum: [N, K] per-destination
+    sums of |d|, relu(d) and relu(-d), the flat per-edge path's
+    normalizers (need_norms), else None."""
     src: torch.Tensor
     dst: torch.Tensor
     edge_mask: torch.Tensor
@@ -82,6 +91,9 @@ class EdgeContext:
     fam_tot: Optional[Dict[str, torch.Tensor]]
     adj: Optional[torch.Tensor]
     adj_keys: Tuple[str, ...]
+    abs_sum: Optional[torch.Tensor] = None
+    pos_sum: Optional[torch.Tensor] = None
+    neg_sum: Optional[torch.Tensor] = None
 
     @property
     def decomposed(self) -> bool:
@@ -179,27 +191,36 @@ def _unique(seq):
 
 def build_edge_context(eig: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                        edge_mask: torch.Tensor, degree: torch.Tensor,
-                       names: Sequence[str], mxu_layout: mxu.MXULayout,
+                       names: Sequence[str],
+                       mxu_layout: Optional[mxu.MXULayout] = None,
                        decomposed: bool = True,
-                       adj_dtype: Optional[torch.dtype] = None
-                       ) -> EdgeContext:
+                       adj_dtype: Optional[torch.dtype] = None,
+                       need_norms: bool = False) -> EdgeContext:
     """The per-forward-pass batch constants of the edge stage: the eig
-    deltas and, when decomposed, the family weights, their
-    per-destination totals and the adjacency blocks (one
-    build_pair_adjacency launch).  A per-edge context (decomposed False)
-    holds the deltas only and launches nothing.  None of it carries a
+    deltas; with need_norms (the flat per-edge path) the directional
+    normalizers; and, when decomposed, the family weights and their
+    per-destination totals, plus on the block layout (mxu_layout given)
+    the adjacency blocks (one build_pair_adjacency launch).  The flat
+    layout builds no blocks and launches nothing.  None of it carries a
     gradient."""
-    if mxu_layout is None:
-        raise NotImplementedError(
-            "only the edge stage on the block layout is ported")
     names = parse_names(names)
     n = eig.shape[0]
     delta = None
+    norms = {}
     if any(_dir_spec(x) for x in names):
         delta = (gather(eig, src) - gather(eig, dst)).detach()
+        if need_norms:
+            kinds = {k for _, k in filter(None, map(_dir_spec, names))}
+            if kinds - {"dx-balanced"}:
+                norms["abs_sum"] = segment_sum(delta.abs(), dst, n, edge_mask)
+            if "dx-balanced" in kinds:
+                norms["pos_sum"] = segment_sum(torch.relu(delta), dst, n,
+                                               edge_mask)
+                norms["neg_sum"] = segment_sum(torch.relu(-delta), dst, n,
+                                               edge_mask)
     ctx = EdgeContext(src=src, dst=dst, edge_mask=edge_mask, degree=degree,
                       eig_delta=delta, num_nodes=n, fam_w=None, fam_tot=None,
-                      adj=None, adj_keys=())
+                      adj=None, adj_keys=(), **norms)
     if not decomposed:
         return ctx
     keys = _unique(k for nm in names
@@ -215,15 +236,18 @@ def build_edge_context(eig: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     scat_keys = [k for k in tot_keys if not k.startswith("sm")]
     if scat_keys:
         stacked = torch.stack([fam_w[k] for k in scat_keys], dim=1)
-        tots = mxu.block_scatter_sum(stacked, mxu_layout.local_dst,
-                                     mxu_layout.edge_chunk_dst,
-                                     mxu_layout.n_node_blocks)[:n]
+        if mxu_layout is not None:
+            tots = mxu.block_scatter_sum(stacked, mxu_layout.local_dst,
+                                         mxu_layout.edge_chunk_dst,
+                                         mxu_layout.n_node_blocks)[:n]
+        else:
+            tots = segment_sum(stacked, dst, n)
         fam_tot = {k: tots[:, i] for i, k in enumerate(scat_keys)}
     for k in tot_keys:
         if k.startswith("sm"):
             fam_tot[k] = (degree > 0).to(eig.dtype)
     adj = None
-    if adj_keys:
+    if adj_keys and mxu_layout is not None:
         adj = mxu.build_pair_adjacency(
             torch.stack([fam_w[k] for k in adj_keys]), mxu_layout,
             out_dtype=adj_dtype)
@@ -239,10 +263,8 @@ def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
                          ) -> torch.Tensor:
     """All aggregators over msg_e = g[src_e] + q[dst_e] (+ c_edge[e]),
     concatenated on the feature axis -> [N, len(names) * F].  q_node and
-    c_edge may be None (0)."""
+    c_edge may be None (0).  layout None: the flat layout."""
     names = list(names)
-    if layout is None:
-        raise NotImplementedError("only the block layout is ported")
     if not ctx.decomposed:
         raise ValueError("a per-edge edge context holds no weight families: "
                          "build it with decomposed=True")
@@ -254,10 +276,10 @@ def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
         raise ValueError(f"edge context holds adjacency blocks {ctx.adj_keys}"
                          f", these aggregators need {full_keys}: build it "
                          "with the same names")
-    nb = layout.n_node_blocks
     # (g + c)^2 has a cross term: var/std with edge features scatter the
-    # per-edge values instead of multiplying the adjacency blocks
-    use_adj = c_edge is None or not need_sq
+    # per-edge values instead of multiplying the adjacency blocks; the flat
+    # layout has no blocks
+    use_adj = layout is not None and (c_edge is None or not need_sq)
     # the per-edge values ge: for max/min, and for the scatter branch
     ge = None
     if not use_adj or "max" in names or "min" in names:
@@ -267,6 +289,7 @@ def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
 
     S = {}
     if full_keys and use_adj:
+        nb = layout.n_node_blocks
         gp = g_node.reshape(nb, mxu.TILE, f)[layout.pair_src]   # [P, T, F]
         T = mxu.pair_adj_matmul(ctx.adj, gp)                     # [P, K, T, F]
         Sb = segment_sum(T, layout.pair_dst, nb)                 # [nb, K, T, F]
@@ -291,8 +314,11 @@ def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
             cols.append(d * ctx.fam_w[k][:, None])
             bounds[k] = (off, off + d.shape[1])
             off += d.shape[1]
-        out = mxu.block_scatter_sum(torch.cat(cols, dim=1), layout.local_dst,
-                                    layout.edge_chunk_dst, nb)[:n]
+        wide = torch.cat(cols, dim=1)
+        out = (mxu.block_scatter_sum(wide, layout.local_dst,
+                                     layout.edge_chunk_dst,
+                                     layout.n_node_blocks)[:n]
+               if layout is not None else segment_sum(wide, ctx.dst, n))
         S = {k: out[:, a:b] for k, (a, b) in bounds.items()}
 
     deg = ctx.degree.to(g_node.dtype)
@@ -301,8 +327,14 @@ def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
     q = q_node
     # the extremes are not weighted sums: they take the per-edge values ge
     ext = None
-    if "max" in names or "min" in names:
+    if layout is not None and ("max" in names or "min" in names):
         ext = extremes.segment_extremes(ge, layout, ctx.edge_mask, n)
+    elif "max" in names and "min" in names:
+        ext = segment.segment_extremes(ge, ctx.dst, n, ctx.edge_mask)
+    elif "max" in names:
+        ext = (segment.segment_max(ge, ctx.dst, n, ctx.edge_mask), None)
+    elif "min" in names:
+        ext = (None, segment.segment_min(ge, ctx.dst, n, ctx.edge_mask))
     outs = []
     for name in names:
         if name == "sum":
@@ -315,7 +347,7 @@ def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
         elif name in ("var", "std"):
             outs.append(_var_std(name, S["one"], f, degc, has_edge))
         elif name in ("max", "min"):
-            # the kernel pair already writes 0 for nodes without an edge
+            # both paths already give 0 for nodes without an edge
             s = ext[0] if name == "max" else ext[1]
             outs.append(torch.where(has_edge, s + q, 0.0) if q is not None
                         else s)
@@ -453,15 +485,54 @@ def _softmax_aggregate(name: str, ctx: EdgeContext, msg):
                        ctx.edge_mask)
 
 
+def _agg_xla(name: str, ctx: EdgeContext, msg, h_in):
+    """One aggregator as its own masked segment op over the per-edge
+    messages (the flat layout; dgn_tpu/ops/aggregators.py:273-322)."""
+    n, dst, mask = ctx.num_nodes, ctx.dst, ctx.edge_mask
+    if name == "mean":
+        return segment.segment_mean(msg, dst, n, mask, ctx.degree)
+    if name == "sum":
+        return segment_sum(msg, dst, n, mask)
+    if name == "max":
+        return segment.segment_max(msg, dst, n, mask)
+    if name == "min":
+        return segment.segment_min(msg, dst, n, mask)
+    if name == "var":
+        return segment.segment_var(msg, dst, n, mask, ctx.degree)
+    if name == "std":
+        return segment.segment_std(msg, dst, n, mask, ctx.degree)
+    k, kind = _dir_spec(name)
+    d = ctx.eig_delta[:, k]
+    if kind in ("av", "smooth"):
+        w = d.abs() / (ctx.abs_sum[:, k].index_select(0, dst) + EPS)
+        return segment_sum(msg * w[:, None], dst, n, mask)
+    if kind in ("dx", "dx-no-abs", "dx-balanced"):
+        if kind == "dx-balanced":
+            front = torch.relu(d) / (ctx.pos_sum[:, k].index_select(0, dst)
+                                     + EPS)
+            back = torch.relu(-d) / (ctx.neg_sum[:, k].index_select(0, dst)
+                                     + EPS)
+            w = (front + back) * 0.5
+        else:
+            w = d / (ctx.abs_sum[:, k].index_select(0, dst) + EPS)
+        wh = segment_sum(msg * w[:, None], dst, n, mask)
+        wsum = segment_sum(w, dst, n, mask)
+        out = wh - wsum[:, None] * h_in
+        return out if kind == "dx-no-abs" else out.abs()
+    return _softmax_aggregate(name, ctx, msg)
+
+
 def aggregate(names: Sequence[str], ctx: EdgeContext, msg: torch.Tensor,
               h_in: torch.Tensor,
               layout: Optional[mxu.MXULayout] = None) -> torch.Tensor:
     """All aggregators over the per-edge messages msg [E, F] (every padded
     edge; pad edges never reach a reduction), concatenated on the feature
-    axis -> [N, len(names) * F] (reference nets/dgn_layer.py:94)."""
+    axis -> [N, len(names) * F] (reference nets/dgn_layer.py:94).  layout
+    None: the flat layout, one segment op per aggregator."""
     names = list(names)
     if layout is None:
-        raise NotImplementedError("only the block layout is ported")
+        outs = [_agg_xla(n, ctx, msg, h_in) for n in names]
+        return torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
     fuse = [n for n in names if _fusable(n)]
     out = _fused_aggregate(fuse, ctx, msg, h_in, layout) if fuse else {}
     if "max" in names or "min" in names:

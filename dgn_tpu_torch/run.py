@@ -1,14 +1,16 @@
 """Experiment entry point: `python -m dgn_tpu_torch.run --config ... [flags]`.
 
 Counterpart of `dgn_tpu/run.py` for what this package covers: the ZINC,
-SBM, superpixel, HIV and PCBA tasks on the block layout, one device.
-Pipeline: config (JSON + CLI overlay) -> dataset (synthetic when no
-data_dir) -> avg_d degree stats over train -> per-task derived config ->
-model -> Trainer (Adam + ReduceLROnPlateau, seeded) -> epoch loop with
-val/test eval, min-lr and max_time stops -> final report (MAE for ZINC,
-accuracy for SBM and superpixels, ROC-AUC for HIV, AP for PCBA).  A batch
-above 1024 graphs runs as micro-batches (`resolve_micro_batches`), as the
-PCBA config's 2048 does.
+SBM, superpixel, HIV and PCBA tasks on the block layout (`--layout mxu`,
+or `auto`) or the flat one (`--layout flat`), and COLLAB link prediction,
+one device.  Pipeline: config (JSON + CLI overlay) -> dataset (synthetic
+when no data_dir) -> avg_d degree stats over train -> per-task derived
+config -> model -> Trainer (Adam + ReduceLROnPlateau, seeded) -> epoch loop
+with val/test eval, min-lr and max_time stops -> final report (MAE for
+ZINC, accuracy for SBM and superpixels, ROC-AUC for HIV, AP for PCBA).  A
+batch above 1024 graphs runs as micro-batches (`resolve_micro_batches`),
+as the PCBA config's 2048 does.  `--dataset COLLAB` takes `run_collab`:
+one graph packed flat once, LinkPredTrainer, Hits@K.
 
 The model runs on the GPU (`--device cuda`, the default) unless the caller
 asks for the CPU (`--device cpu`); without a GPU and without that request
@@ -43,12 +45,24 @@ def resolve_micro_batches(micro_batches, batch_size: int) -> int:
     return max(1, int(micro_batches))
 
 
+def resolve_layout(layout: str) -> str:
+    """'auto' -> the block layout, as dgn_tpu/run.py:47-58 resolves it."""
+    return "mxu" if layout == "auto" else layout
+
+
+def pad_geometry(graphs, batch_size: int, layout: str = "flat"):
+    """Static (n_pad, e_pad) any batch_size subset fits under the layout:
+    the sum of the largest graphs (graph.bucket_sizes_for), or the block
+    layout's placement estimate (graph.mxu_bucket_sizes)."""
+    from .graph import bucket_sizes_for, mxu_bucket_sizes
+    if layout == "mxu":
+        return mxu_bucket_sizes(graphs, batch_size)[:2]
+    return bucket_sizes_for(graphs, batch_size)
+
+
 def check_ported(cfg) -> None:
     """Raise NotImplementedError for run options the port lacks."""
     d = cfg.data
-    if d.layout not in ("auto", "mxu"):
-        raise NotImplementedError(f"layout {d.layout!r} is not ported yet "
-                                  "(the block layout, mxu, is)")
     if d.n_buckets > 1:
         raise NotImplementedError("n_buckets > 1 is not ported yet")
     if cfg.net_params.compute_dtype is not None:
@@ -125,11 +139,68 @@ def prepare(cfg, device="cuda"):
     loaders = {split: BatchLoader(gs, batch_size=bs,
                                   shuffle=(split == "train"),
                                   seed=cfg.params.seed,
+                                  layout=resolve_layout(cfg.data.layout),
                                   geometry=cfg.data.geometry,
                                   cache=(split != "train"),
                                   micro_batches=mb)
                for split, gs in ds.splits.items()}
     return ds, model, loss_fn, trainer, loaders
+
+
+def prepare_collab(cfg, device="cuda"):
+    """COLLAB's graph, splits, model and trainer, shared by run_collab and
+    tests: the DGN backbone with a linear node encoder over the graph's
+    float features and avg_d from its degrees, the graph packed flat once
+    (pack_graphs([g], g_pad=1): no pad node, no pad edge) and moved to the
+    device once.  `datasets.load_collab` is looked up at call time, as
+    prepare's load_dataset is.  Returns (gb, splits, trainer)."""
+    from .data import datasets
+    from .graph import pack_graphs
+    from .ops.scalers import degree_stats
+    from .train.link_pred import LinkPredTrainer, collab_model
+
+    check_ported(cfg)
+    g, splits, meta = datasets.load_collab(cfg.data)
+    degs = np.bincount(g.dst, minlength=g.num_nodes)
+    np_cfg = dataclasses.replace(cfg.net_params, node_encoder="linear",
+                                 avg_d=degree_stats(degs))
+    model = collab_model(np_cfg, meta["in_dim"],
+                         torch.Generator().manual_seed(cfg.params.seed),
+                         pos_enc_in=pos_enc_width(np_cfg, g))
+    gb = pack_graphs([g], g_pad=1).to(device)
+    return gb, splits, LinkPredTrainer(model, cfg.params, device=device)
+
+
+def run_collab(cfg, device):
+    """Link prediction (the ogbl-collab protocol, dgn_tpu/run.py:179-221):
+    per epoch one pass over the train edges, Hits@K on valid and test, the
+    plateau scheduler on -hits@50, test at the best valid; stops at min_lr
+    or max_time."""
+    t0 = time.time()
+    gb, splits, trainer = prepare_collab(cfg, device)
+    p = cfg.params
+    print(f"[dgn_tpu_torch] data ready in {time.time() - t0:.1f}s "
+          f"({gb.num_nodes_padded} nodes, {gb.num_edges_padded} edges, "
+          f"{len(splits['train'])} train pairs)")
+    best_val, test_at_best = -1.0, None
+    for epoch in range(p.epochs):
+        loss = trainer.train_epoch(gb, splits["train"], epoch)
+        val = trainer.evaluate(gb, splits["valid"], splits["valid_neg"])
+        test = trainer.evaluate(gb, splits["test"], splits["test_neg"])
+        trainer.scheduler.step(-val["hits@50"])
+        if val["hits@50"] > best_val:
+            best_val, test_at_best = val["hits@50"], test
+        if epoch % p.print_epoch_interval == 0:
+            print(f"epoch {epoch}: loss={loss:.4f} val={val} test={test}")
+        if trainer.scheduler.lr <= p.min_lr * (1 + 1e-9):
+            break
+        if (time.time() - t0) / 3600.0 > p.max_time:
+            break
+    report = {"dataset": "COLLAB", "device": str(device),
+              "best_val_hits@50": best_val, "test_at_best_val": test_at_best,
+              "total_time_h": (time.time() - t0) / 3600.0}
+    print("[dgn_tpu_torch] FINAL " + json.dumps(report, default=float))
+    return report
 
 
 def run(argv=None):
@@ -139,8 +210,12 @@ def run(argv=None):
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    layout = "flat" if cfg.task == "collab" else resolve_layout(
+        cfg.data.layout)
     print(f"[dgn_tpu_torch] dataset={cfg.dataset} task={cfg.task} "
-          f"device={device} layout=mxu")
+          f"device={device} layout={layout}")
+    if cfg.task == "collab":
+        return run_collab(cfg, device)
     t0 = time.time()
     ds, model, loss_fn, trainer, loaders = prepare(cfg, device)
     print(f"[dgn_tpu_torch] data ready in {time.time() - t0:.1f}s "

@@ -1,8 +1,9 @@
 """Host-side task metrics (counterpart of `dgn_tpu/train/metrics.py`).
 
 MAE (ZINC), balanced node accuracy (SBM), accuracy (superpixels), ROC-AUC
-(ogbg-molhiv) and mean per-task average precision (ogbg-molpcba), the last
-two replacing the OGB Evaluator's scoring rules.  Arrays hold
+(ogbg-molhiv), mean per-task average precision (ogbg-molpcba) and Hits@K
+(ogbl-collab), the last three replacing the OGB Evaluator's scoring
+rules.  Arrays hold
 REAL (unpadded) elements; the trainer strips padding."""
 from __future__ import annotations
 
@@ -69,3 +70,14 @@ def multitask_ap(scores: np.ndarray, labels: np.ndarray) -> float:
             continue
         aps.append(average_precision(scores[valid, t], yv))
     return float(np.mean(aps)) if aps else float("nan")
+
+
+def hits_at_k(pos_scores: np.ndarray, neg_scores: np.ndarray, k: int) -> float:
+    """OGB link-prediction Hits@K (reference
+    train_COLLAB_edge_classification.py:115-145): the fraction of positive
+    edges scored above the K-th best negative; 1 with fewer than K
+    negatives."""
+    if len(neg_scores) < k:
+        return 1.0
+    kth = np.sort(neg_scores.reshape(-1))[-k]
+    return float((pos_scores.reshape(-1) > kth).mean())

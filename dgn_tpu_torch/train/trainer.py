@@ -7,7 +7,8 @@ objective, per-epoch train/val/test evaluation, min-lr and max_time stops.
 The model and optimizer live on `device`; the loaders yield CPU batches and
 each step moves its batch over.  Eval batches that a loader replays
 (BatchLoader(cache=True)) keep their device copy with the EdgeContext
-attached, so their adjacency blocks are built once (with_edge_context).
+attached, so their adjacency blocks (block layout) or their directional
+normalizers (flat layout) are built once (with_edge_context).
 
 Tasks: ZINC (MAE), SBM (balanced node accuracy), superpixels (accuracy) —
 each with the validation loss as the plateau objective — and ogbg-molhiv
@@ -26,7 +27,8 @@ augmentation key from its dropout key.  Eval batches are never augmented.
 
 Micro-batching: a loader batch that arrives as a list of K micro-batches
 (BatchLoader(micro_batches=K)) takes K forward/backward passes and ONE
-optimizer step (`train_step`); see there for how it departs from dgn_tpu.
+optimizer step (`train_step`); see there for where it departs from
+dgn_tpu's step.
 
 Not ported yet: checkpointing.
 """

@@ -419,8 +419,8 @@ def test_eval_cache_keeps_a_per_edge_context():
     model, loss_fn = tzinc(cfg, torch.Generator().manual_seed(0))
     trainer = TTrainer(model, loss_fn, TParams(seed=41), task="zinc",
                        device="cpu")
-    loader = TBatchLoader(graphs, 4, cache=True)
-    trainer.train_step(next(iter(TBatchLoader(graphs, 8))))
+    loader = TBatchLoader(graphs, 4, layout="mxu", cache=True)
+    trainer.train_step(next(iter(TBatchLoader(graphs, 8, layout="mxu"))))
     first = trainer.evaluate(loader)
     for gb in loader:
         hit = trainer.with_edge_context(gb)

@@ -147,7 +147,8 @@ def test_augmented_step_matches_reference(zinc_every_option, micro_batches):
         jnp.asarray(LR, jnp.float32))
 
     tgs = [tgraph.GraphData(**dataclasses.asdict(g)) for g in graphs]
-    tbatch = next(iter(TBatchLoader(tgs, 12, micro_batches=micro_batches)))
+    tbatch = next(iter(TBatchLoader(tgs, 12, layout="mxu",
+                                       micro_batches=micro_batches)))
     micros = tbatch if micro_batches > 1 else [tbatch]
     model, loss_fn = tzinc(TConfig(**net), torch.Generator().manual_seed(0),
                            pos_enc_in=P)
@@ -198,7 +199,7 @@ def test_train_step_builds_its_context_from_the_augmented_eig(monkeypatch,
     it is the batch's."""
     graphs = [tgraph.GraphData(**dataclasses.asdict(g))
               for g in jsyn.synthetic_zinc(6, seed=2)]
-    batch = next(iter(TBatchLoader(graphs, 6, micro_batches=2)))
+    batch = next(iter(TBatchLoader(graphs, 6, layout="mxu", micro_batches=2)))
     params = TParams(seed=41, **(AUG if augment else {}))
     model, loss_fn = tzinc(TConfig(hidden_dim=6, out_dim=6, L=1),
                            torch.Generator().manual_seed(0))

@@ -98,7 +98,7 @@ def test_micro_loader_matches_reference(shuffle):
     kw = dict(batch_size=32, shuffle=shuffle, seed=5, geometry="typical",
               micro_batches=K)
     jl = JBatchLoader(graphs, layout="mxu", **kw)
-    tl = TBatchLoader(_to_port(graphs), **kw)
+    tl = TBatchLoader(_to_port(graphs), layout="mxu", **kw)
     assert (tl.n_pad, tl.e_pad, tl.g_pad, tl.pair_pad) == \
         (jl.n_pad, jl.e_pad, jl.g_pad, jl.pair_pad)
     assert len(tl) == len(jl) == 3
@@ -114,7 +114,7 @@ def test_micro_loader_escape_shares_one_geometry():
     shared coarse geometry, as dgn_tpu's loader does."""
     graphs = jsyn.synthetic_zinc(32, seed=3)
     jl = JBatchLoader(graphs, 32, layout="mxu", micro_batches=K)
-    tl = TBatchLoader(_to_port(graphs), 32, micro_batches=K)
+    tl = TBatchLoader(_to_port(graphs), 32, layout="mxu", micro_batches=K)
     jl.n_pad = tl.n_pad = 128          # too small for any micro-batch
     jbs, tbs = next(iter(jl)), next(iter(tl))
     assert tl.n_escapes == jl.n_escapes == 1
@@ -178,8 +178,9 @@ def test_micro_step_equals_full_step_and_reference(task):
     params = jax.tree_util.tree_map(np.asarray, state.params)
 
     tgs = _to_port(graphs)
-    tfull = next(iter(TBatchLoader(tgs, 48)))
-    tmicros = next(iter(TBatchLoader(tgs, 48, micro_batches=K)))
+    tfull = next(iter(TBatchLoader(tgs, 48, layout="mxu")))
+    tmicros = next(iter(TBatchLoader(tgs, 48, layout="mxu",
+                                      micro_batches=K)))
     assert isinstance(tmicros, list) and len(tmicros) == K
     assert sum(int(g.graph_mask.sum()) for g in tmicros) == len(graphs)
     steps = {}
@@ -222,7 +223,7 @@ def test_micro_step_updates_bn_running_stats_per_micro_batch():
     trainer = TTrainer(model, loss_fn, TParams(seed=41, init_lr=LR),
                        task="zinc", device="cpu")
     loss, _ = trainer.train_step(next(iter(TBatchLoader(
-        _to_port(graphs), 24, micro_batches=3))))
+        _to_port(graphs), 24, layout="mxu", micro_batches=3))))
     np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5, atol=1e-6)
     want = flatten(jax.tree_util.tree_map(np.asarray, jstate.batch_stats))
     got = {flax_path(k): v.numpy() for k, v in model.named_buffers()}

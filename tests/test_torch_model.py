@@ -257,9 +257,32 @@ def test_zinc_adam_step_matches_reference_trainer(setup):
                  rtol=1e-4, atol=1e-6)
 
 
+def test_readout_none_returns_node_embeddings(setup):
+    """Readout "none" (the link-prediction backbone): no MLP_layer, and the
+    forward returns dgn_tpu's node embeddings, in eval and train mode."""
+    jb, tb, _, _, params, batch_stats, tcfg = setup
+    cfg = dataclasses.replace(tcfg, readout="none")
+    jmodel, _ = jzinc(JConfig(**dataclasses.asdict(cfg)))
+    jparams = {k: v for k, v in params.items() if k != "MLP_layer"}
+    model, _ = tzinc(cfg, torch.Generator().manual_seed(0))
+    assert not hasattr(model, "MLP_layer")
+    load_jax_params(model, jparams, batch_stats)
+    nmask = tb.node_mask.numpy()
+    for train in (False, True):
+        want = jmodel.apply({"params": jparams, "batch_stats": batch_stats},
+                            jb, deterministic=not train,
+                            mutable=["batch_stats"] if train else False)
+        want = np.asarray(want[0] if train else want)
+        model.train(train)
+        with torch.no_grad():
+            got = model(tb).numpy()
+        assert got.shape == (tb.num_nodes_padded, H)
+        np.testing.assert_allclose(got[nmask], want[nmask], rtol=1e-4,
+                                   atol=2e-5)
+
+
 @pytest.mark.parametrize("field,value", [("bn_axis", "dp"),
-                                         ("compute_dtype", "bfloat16"),
-                                         ("readout", "none")])
+                                         ("compute_dtype", "bfloat16")])
 def test_unported_config_raises(field, value):
     cfg = dataclasses.replace(TConfig(hidden_dim=H, out_dim=H, L=L),
                               **{field: value})

@@ -98,9 +98,10 @@ def test_geometry_helpers_identical():
     graphs = jsyn.synthetic_zinc(64, seed=9)
     tgs = _to_port(graphs)
     assert tgraph.mxu_bucket_sizes(tgs, 16) == jgraph.mxu_bucket_sizes(graphs, 16)
-    assert tgraph.typical_bucket_sizes(tgs, 16, seed=4) == \
+    assert tgraph.typical_bucket_sizes(tgs, 16, mxu_layout=True,
+                                       seed=4) == \
         jgraph.typical_bucket_sizes(graphs, 16, mxu_layout=True, seed=4)
-    assert tgraph.pack_requirements(tgs[:16]) == \
+    assert tgraph.pack_requirements(tgs[:16], mxu_layout=True) == \
         jgraph.pack_requirements(graphs[:16], mxu_layout=True)
     assert tgraph.mxu_pair_pad(tgs, 16, 1024, 2048) == \
         jgraph.mxu_pair_pad(graphs, 16, 1024, 2048)
@@ -115,7 +116,7 @@ def test_loader_same_batches(shuffle):
     jl = JBatchLoader(graphs, batch_size=16, shuffle=shuffle, seed=5,
                       layout="mxu", geometry="typical")
     tl = TBatchLoader(_to_port(graphs), batch_size=16, shuffle=shuffle,
-                      seed=5, geometry="typical")
+                      seed=5, layout="mxu", geometry="typical")
     assert (tl.n_pad, tl.e_pad, tl.pair_pad) == (jl.n_pad, jl.e_pad,
                                                  jl.pair_pad)
     for _ in range(2):          # two epochs: the rng stream advances alike
@@ -128,9 +129,22 @@ def test_loader_same_batches(shuffle):
                                           np.asarray(jb.n_nodes))
 
 
-def test_flat_layout_not_ported():
-    with pytest.raises(NotImplementedError):
-        tgraph.pack_graphs(_to_port(jsyn.synthetic_zinc(2, seed=1)))
+def test_flat_pack_identical():
+    """The default pack is flat, as in dgn_tpu: the same arrays, no block
+    layout (tests/test_torch_flat.py holds the flat layout in full)."""
+    graphs = jsyn.synthetic_zinc(24, seed=7)
+    n_pad, e_pad = jgraph.bucket_sizes_for(graphs, len(graphs))
+    for kw in ({}, dict(n_pad=n_pad, e_pad=e_pad, g_pad=32)):
+        jb = jgraph.pack_graphs(graphs, **kw)
+        tb = tgraph.pack_graphs(_to_port(graphs), **kw)
+        assert jb.mxu is None and tb.mxu is None
+        for name in _GB_FIELDS:
+            want, got = getattr(jb, name), getattr(tb, name)
+            if want is None:
+                assert got is None, name
+                continue
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want),
+                                          err_msg=name)
 
 
 # ------------------------------------------------------------ import isolation

@@ -1,8 +1,8 @@
 """The port's entry point: plateau schedule parity, end-to-end CPU runs
 (ZINC, and the towers, virtual-node, augmented, edge-feature, per-edge
-pretrans and decompose-off paths), device selection,
-rejected options, a `data` block's pos_enc_dim, and import isolation from
-JAX."""
+pretrans, decompose-off and flat-layout paths, and COLLAB link
+prediction), device selection, rejected options, a `data` block's
+pos_enc_dim, and import isolation from JAX."""
 from __future__ import annotations
 
 import json
@@ -28,7 +28,8 @@ CONFIGS = REPO / "configs"
 CONFIG = str(CONFIGS / "molecules_graph_regression_DGN_ZINC.json")
 SMALL = ["--config", CONFIG, "--epochs", "1", "--synthetic_size", "32"]
 # (config, flags, metric): chip_smoke.py's zinc-towers, pcba-vn,
-# cifar10-aug, zinc-edge, zinc-pretrans and hiv-per-edge paths at a tiny size
+# cifar10-aug, zinc-edge, zinc-pretrans, hiv-per-edge, zinc-flat and
+# hiv-flat paths at a tiny size
 NEW_PATHS = {
     "zinc-towers": ("molecules_graph_regression_DGN_ZINC.json",
                     ["--type_net", "towers", "--flip", "True",
@@ -49,6 +50,10 @@ NEW_PATHS = {
     "hiv-per-edge": ("molecules_graph_classification_DGN_HIV.json",
                      ["--decompose", "False", "--synthetic_size", "32"],
                      "rocauc"),
+    "zinc-flat": ("molecules_graph_regression_DGN_ZINC.json",
+                  ["--layout", "flat", "--synthetic_size", "32"], "mae"),
+    "hiv-flat": ("molecules_graph_classification_DGN_HIV.json",
+                 ["--layout", "flat", "--synthetic_size", "32"], "rocauc"),
 }
 
 
@@ -78,13 +83,33 @@ def test_run_without_gpu_refuses_cpu_fallback():
         trun.run(SMALL)
 
 
-@pytest.mark.parametrize("flags", [["--layout", "flat"],
-                                   ["--n_buckets", "2"],
-                                   ["--compute_dtype", "bfloat16"],
-                                   ["--dataset", "COLLAB"]])
+@pytest.mark.parametrize("flags", [["--n_buckets", "2"],
+                                   ["--compute_dtype", "bfloat16"]])
 def test_run_rejects_unported_options(flags):
     with pytest.raises(NotImplementedError):
         trun.run(SMALL + ["--device", "cpu"] + flags)
+
+
+def test_run_collab_two_epochs_on_cpu(capsys):
+    """COLLAB link prediction end to end: the FINAL line carries the best
+    valid Hits@50 and Hits@{10, 50, 100} on test at that epoch, each in
+    [0, 1], as dgn_tpu/run.py:217-220 reports them."""
+    report = trun.run(["--dataset", "COLLAB", "--synthetic_size", "256",
+                       "--epochs", "2", "--device", "cpu"])
+    assert report["dataset"] == "COLLAB" and report["device"] == "cpu"
+    assert 0.0 <= report["best_val_hits@50"] <= 1.0
+    test = report["test_at_best_val"]
+    assert set(test) == {"hits@10", "hits@50", "hits@100"}
+    assert all(0.0 <= v <= 1.0 for v in test.values())
+    out = capsys.readouterr().out
+    assert "layout=flat" in out and "[dgn_tpu_torch] FINAL" in out
+
+
+def test_run_collab_without_gpu_refuses_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    with pytest.raises(SystemExit, match="--device cpu"):
+        trun.run(["--dataset", "COLLAB", "--synthetic_size", "128"])
 
 
 @pytest.mark.parametrize("path", sorted(NEW_PATHS))
@@ -97,7 +122,10 @@ def test_run_new_path_one_epoch_on_cpu(path, capsys):
     for split in ("train", "val", "test"):
         assert math.isfinite(report["final"][split][metric])
         assert math.isfinite(report["final"][split]["loss"])
-    assert f"final {metric}" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert f"final {metric}" in out
+    want = "flat" if "--layout" in flags else "mxu"
+    assert f"layout={want}" in out
 
 
 @pytest.mark.parametrize("name,k_eig", [
