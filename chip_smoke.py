@@ -14,8 +14,9 @@ and no device line.  Phases, each of which fails the script:
 3. kernels: each kernel at its paths' shapes, held against its plain
    PyTorch version on the card and against an f64 oracle, and timed beside
    the plain version, one equivalent PyTorch call and the card's bound:
-   build_pair_adjacency at the ZINC and the CIFAR10 batch (plus a
-   multi-block case and bf16 output), the segment_extremes forward/backward
+   build_pair_adjacency at the ZINC and the CIFAR10 batch, in float32 and
+   in its bf16 output mode (plus a multi-block case), the
+   segment_extremes forward/backward
    pair at the HIV batch and at one PCBA micro-batch (plus tie, star,
    multi-block and dense-block cases) with its grids;
    The extremes pair is also held against its plain version at F = 14, the
@@ -30,8 +31,13 @@ and no device line.  Phases, each of which fails the script:
    (cifar10-aug), ZINC with bond-type edge features (zinc-edge), the same
    with a 2-layer per-edge pretrans and a 2-layer posttrans
    (zinc-pretrans), HIV on the per-edge message path (hiv-per-edge,
-   --decompose False), and ZINC and HIV on the flat layout (zinc-flat,
-   hiv-flat, --layout flat: segment ops, no kernel).  Every kernel launch
+   --decompose False), ZINC and HIV on the flat layout (zinc-flat,
+   hiv-flat, --layout flat: segment ops, no kernel), and ZINC, HIV and
+   CIFAR10 in bfloat16 (zinc-bf16, hiv-bf16, cifar10-bf16,
+   --compute_dtype bfloat16: the adjacency kernel's bf16 blocks, bf16
+   operands with float32 accumulation in every block product, gather and
+   scatter; each path's launches must equal its float32 sibling's, and
+   its blocks must be bf16).  Every kernel launch
    counter is set to 0 just before and read just after each run, and
    checked against the count the path's loaders, tower count, edge stage
    and layout imply (no adjacency build where the config does not
@@ -44,13 +50,26 @@ and no device line.  Phases, each of which fails the script:
    dir1-neg-0.1`), decomposed (their weights go through
    build_pair_adjacency) and per-edge.  On zinc-flat's first batch, the
    flat-versus-block check: the same graphs packed both ways, one step
-   from the same weights on the card, the same loss and scores;
+   from the same weights on the card, the same loss and scores.  Each
+   path prints its peak device memory (torch.cuda.max_memory_allocated)
+   over its entry-point run and over its timed steps, and each bf16 path
+   its float32 sibling's step figures from the same call beside its own;
 5. COLLAB: `dgn_tpu_torch.run --dataset COLLAB` trains link prediction on
    one synthetic 4,096-node graph (one epoch of 3 edge batches of 4,096,
    the default DGN-complex net at hidden 45, L = 4) with both counters
    at 0 before and required at 0 after; then MIN_STEPS train steps timed
    and profiled, and one step from identical weights and identical
-   positive and negative edges on the CPU and on the card.
+   positive and negative edges on the CPU and on the card;
+6. recipe: through the entry point on the card, outputs under out/: ZINC
+   with --checkpoint for 2 epochs, then --resume to 3 (one epoch run,
+   resumed from epoch 1), the snapshot restored into a fresh trainer bit
+   for bit; --seeds 41,42 (a finite mean and std, a metrics.jsonl and a
+   checkpoint directory per seed); tools/report.py over one metrics.jsonl;
+   poison_padding (the flat layout's eval scores of ZINC's and HIV's first
+   batches unchanged and finite; the extremes pair on HIV's block batch
+   with NaN in every pad edge's lane gives the clean result, and the
+   block layout's model output under poison is reported); profile_steps
+   writes a trace of 3 train steps.
 
 Prints a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`.  Needs no network; starts no process other
@@ -91,6 +110,7 @@ ZINC = "molecules_graph_regression_DGN_ZINC.json"
 HIV = "molecules_graph_classification_DGN_HIV.json"
 PCBA = "molecules_graph_classification_DGN_PCBA.json"
 CIFAR10 = "superpixels_graph_classification_DGN_CIFAR10.json"
+BF16_FLAGS = ("--compute_dtype", "bfloat16")
 # PATTERN's 4096 gives 1024 train graphs (load_sbm keeps n // 4), PCBA's
 # 4096 gives two steps of 2048 graphs per epoch.  The augmentation values
 # are tests/test_train.py's: the repo has no published setting for them.
@@ -114,7 +134,10 @@ PATHS = (
                "--posttrans_layers", "2")),
     TrainPath("hiv-per-edge", HIV, 4, 1024, ("--decompose", "False")),
     TrainPath("zinc-flat", ZINC, 0, 1024, ("--layout", "flat")),
-    TrainPath("hiv-flat", HIV, 0, 1024, ("--layout", "flat")))
+    TrainPath("hiv-flat", HIV, 0, 1024, ("--layout", "flat")),
+    TrainPath("zinc-bf16", ZINC, 0, 1024, BF16_FLAGS),
+    TrainPath("hiv-bf16", HIV, 4, 1024, BF16_FLAGS),
+    TrainPath("cifar10-bf16", CIFAR10, 0, 1024, BF16_FLAGS))
 # COLLAB's dense eigensolve grows as n^3: 4,096 nodes take about 10 s of
 # host time, 16,384 did not finish in 90 s
 COLLAB_NODES = 4096
@@ -125,6 +148,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 F32_TOL, BF16_TOL = 1e-6, 1e-2
 STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
+# a bf16 step: both sides round the same float32 values, but values that
+# differ in their last float32 bit between the CPU and the card can round
+# to neighbouring bf16 values (2^-8 apart); the CPU tests hold the port
+# against dgn_tpu in bf16 at the same 2e-2 (tests/test_torch_bf16.py)
+BF16_STEP_RTOL, BF16_STEP_ATOL = 2e-2, 2e-3
+POISON_RTOL, POISON_ATOL = 1e-5, 1e-6
 DEVICE = "cuda"
 
 
@@ -314,39 +343,45 @@ def family_weights(torch, gb, families):
     return torch.stack(rows).contiguous()
 
 
-def time_adjacency(torch, w, layout, shape: str) -> dict:
-    """build_pair_adjacency at one shape: device ms of the kernel, the plain
-    version and the library call, and the card's bound."""
+def time_adjacency(torch, w, layout, shape: str, out_dtype) -> dict:
+    """build_pair_adjacency at one shape and output dtype: device ms of the
+    kernel, the plain version and the library call, and the card's
+    bound."""
     from dgn_tpu_torch.ops import adjacency
     dev = w.device
     k, e_pad = w.shape
     p = layout.n_pairs
     ms, call_ms = timed(
-        torch, lambda i: adjacency.build_pair_adjacency(w, layout))
+        torch, lambda i: adjacency.build_pair_adjacency(w, layout, out_dtype))
     plain_ms, plain_call_ms = timed(
-        torch, lambda i: adjacency.build_pair_adjacency_plain(w, layout))
-    # the library call: one accumulating index_put_ into a zeroed tensor.
-    # Checked once against the kernel; the timed calls then accumulate into
-    # the same tensor, which is the same work.
-    out = torch.zeros((p, k, 128, 128), device=dev)
+        torch, lambda i: adjacency.build_pair_adjacency_plain(w, layout,
+                                                              out_dtype))
+    # the library call: one accumulating index_put_ into a zeroed tensor of
+    # the output dtype.  Checked once against the kernel; the timed calls
+    # then accumulate into the same tensor, which is the same work.
+    out = torch.zeros((p, k, 128, 128), device=dev, dtype=out_dtype)
     idx = (layout.chunk_pair.long().repeat_interleave(128).expand(k, e_pad),
            torch.arange(k, device=dev)[:, None].expand(k, e_pad),
            layout.local_src.long().expand(k, e_pad),
            layout.local_dst.long().expand(k, e_pad))
-    out.index_put_(idx, w, accumulate=True)
-    ref = adjacency.build_pair_adjacency(w, layout)
-    if (out - ref).abs().max().item() > F32_TOL:
+    w_out = w.to(out_dtype)
+    out.index_put_(idx, w_out, accumulate=True)
+    ref = adjacency.build_pair_adjacency(w, layout, out_dtype)
+    tol = F32_TOL if out_dtype == torch.float32 else BF16_TOL
+    if (out.float() - ref.float()).abs().max().item() > tol:
         fail("the library call does not compute build_pair_adjacency")
     library_ms, library_call_ms = timed(
-        torch, lambda i: out.index_put_(idx, w, accumulate=True))
+        torch, lambda i: out.index_put_(idx, w_out, accumulate=True))
     n_chunks = e_pad // 128
+    out_bytes = torch.finfo(out_dtype).bits // 8
     bytes_moved = (w.numel() * 4 + 2 * e_pad * 4 + 2 * n_chunks * 4
-                   + p * k * 128 * 128 * 4)
+                   + p * k * 128 * 128 * out_bytes)
     adds = int((w != 0).sum().item())
     bound_ms, bound_by = bound(bytes_moved, adds)
     covered = layout.pair_covered
     off = int(((layout.pair_src != layout.pair_dst) & covered).sum())
-    print(f"kernel build_pair_adjacency timing ({shape}): K={k} E={e_pad} "
+    print(f"kernel build_pair_adjacency timing ({shape}, {out_dtype}): "
+          f"K={k} E={e_pad} "
           f"C={n_chunks} P={p} ({int(covered.sum())} covered, {off} of them "
           f"off-diagonal), {bytes_moved} bytes, {adds} adds; device ms "
           f"kernel {ms:.5f}, plain {plain_ms:.5f}, library {library_ms:.5f}, "
@@ -360,8 +395,11 @@ def adjacency_phase(torch, np):
     """build_pair_adjacency against its plain version and an f64 oracle,
     then timed at the ZINC batch and at the CIFAR10 path's first batch
     (graphs of 140-159 nodes, each spanning two node blocks, so the batch
-    has off-diagonal pairs).  One entry per shape: `build_pair_adjacency`
-    at the ZINC batch, `build_pair_adjacency@cifar10` at the CIFAR10 one."""
+    has off-diagonal pairs), in float32 and in the bf16 output mode the
+    bf16 paths run.  One entry per shape and dtype: `build_pair_adjacency`
+    at the ZINC batch, `build_pair_adjacency@cifar10` at the CIFAR10 one,
+    `build_pair_adjacency@bf16` and `build_pair_adjacency@cifar10-bf16`
+    the same in bf16."""
     from dgn_tpu_torch.data.synthetic import synthetic_zinc
     from dgn_tpu_torch.graph import GraphData
     from dgn_tpu_torch.ops import adjacency
@@ -386,7 +424,8 @@ def adjacency_phase(torch, np):
     cases = [("zinc_main_f32", w_zinc, zinc.mxu, torch.float32),
              ("zinc_main_bf16", w_zinc, zinc.mxu, torch.bfloat16),
              ("sbm_multiblock_f32", w_sbm, lay.to(dev), torch.float32),
-             ("cifar10_main_f32", w_cifar, cifar.mxu, torch.float32)]
+             ("cifar10_main_f32", w_cifar, cifar.mxu, torch.float32),
+             ("cifar10_main_bf16", w_cifar, cifar.mxu, torch.bfloat16)]
     errs = {}
     for name, w, layout, dt in cases:
         got = adjacency.build_pair_adjacency(w, layout, dt)
@@ -408,12 +447,20 @@ def adjacency_phase(torch, np):
     common = {"route": "cuda", "source": "dgn_tpu_torch/ops/csrc/adjacency.cu",
               "replaces": "dgn_tpu/ops/pallas/adjacency.py:83",
               "launches": None}
+    f32, bf16 = torch.float32, torch.bfloat16
     return [dict(common, name="build_pair_adjacency", path="zinc",
                  max_abs_err=errs["zinc_main_f32"],
-                 **time_adjacency(torch, w_zinc, zinc.mxu, "zinc")),
+                 **time_adjacency(torch, w_zinc, zinc.mxu, "zinc", f32)),
             dict(common, name="build_pair_adjacency@cifar10", path="cifar10",
                  max_abs_err=errs["cifar10_main_f32"],
-                 **time_adjacency(torch, w_cifar, cifar.mxu, "cifar10"))]
+                 **time_adjacency(torch, w_cifar, cifar.mxu, "cifar10", f32)),
+            dict(common, name="build_pair_adjacency@bf16", path="zinc-bf16",
+                 max_abs_err=errs["zinc_main_bf16"],
+                 **time_adjacency(torch, w_zinc, zinc.mxu, "zinc", bf16)),
+            dict(common, name="build_pair_adjacency@cifar10-bf16",
+                 path="cifar10-bf16", max_abs_err=errs["cifar10_main_bf16"],
+                 **time_adjacency(torch, w_cifar, cifar.mxu, "cifar10",
+                                  bf16))]
 
 
 def star_graph(np, GraphData, n: int = 120, hub: int = 10):
@@ -644,11 +691,12 @@ def drive_path(torch, path: TrainPath):
     max/min layer and tower per forward pass, and their backward once per
     such layer and tower per train step.  The counts of packed batches come
     from the path's loaders as run.prepare builds them (`prepared`).
-    Returns (report, launches)."""
+    Returns (report, launches, peak device bytes over the run)."""
     from dgn_tpu_torch import run
     argv = path_argv(path) + ["--epochs", str(EPOCHS), "--device", DEVICE]
     counters = launch_counters()
     n_loads = len(_LOADS)
+    torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
     t0 = time.time()
@@ -656,6 +704,7 @@ def drive_path(torch, path: TrainPath):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
     if len(_LOADS) != n_loads + 1:
         fail(f"{path.key}: the run did not load its dataset once through "
              "share_datasets' cache")
@@ -673,11 +722,11 @@ def drive_path(torch, path: TrainPath):
     print(f"path {path.key}: dgn_tpu_torch.run {' '.join(argv)} -> "
           f"{wall:.1f}s, final test {report['final']['test']}, packed "
           f"batches per pass {units}, launches {launches} (expected "
-          f"{expected})")
+          f"{expected}), peak device memory {peak / 2**20:.1f} MiB")
     if launches != expected:
         fail(f"{path.key}: kernel launches {launches} are not the "
              f"expected {expected}")
-    return report, launches
+    return report, launches, peak
 
 
 def step_profile(torch, step, batches, label: str, per_micro: dict):
@@ -687,6 +736,7 @@ def step_profile(torch, step, batches, label: str, per_micro: dict):
     counters = launch_counters()
     before = {k: c.launches for k, c in counters.items()}
     micros = sum(len(gb) if isinstance(gb, list) else 1 for gb in batches)
+    torch.cuda.reset_peak_memory_stats()
     times = []
     for gb in batches:
         torch.cuda.synchronize()
@@ -702,9 +752,10 @@ def step_profile(torch, step, batches, label: str, per_micro: dict):
                  "micro-batch")
     steady = times[3:]
     med = statistics.median(steady)
+    peak = torch.cuda.max_memory_allocated()
     print(f"train step ({label}): median {med:.3f} ms over {len(steady)} "
           f"steps (min {min(steady):.3f}, max {max(steady):.3f}; first "
-          f"{times[0]:.1f} ms)")
+          f"{times[0]:.1f} ms), peak device memory {peak / 2**20:.1f} MiB")
     n_prof = 5
     events = profiled(torch, lambda: [step(gb) for gb in batches[:n_prof]])
     by_name = {}
@@ -716,6 +767,8 @@ def step_profile(torch, step, batches, label: str, per_micro: dict):
           f"the median step (the device idles the rest); top by device time:")
     for name, t_ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {t_ms:.4f} ms/step  {name[:100]}")
+    return {"median_ms": med, "busy_ms": busy, "ops": len(events) / n_prof,
+            "peak_mib": peak / 2**20}
 
 
 KINKS = ("abs", "relu", "leaky_relu")
@@ -896,26 +949,47 @@ def cpu_vs_card(torch, task, cfg, ds, params, batch):
     for gb, a, b in zip(micros, s_cpu, s_gpu):
         m = gb.node_mask if task == "sbm" else gb.graph_mask
         pairs.append((a[m], b.cpu()[m]))
-    check_step(torch, f"one {task} step over {len(micros)} packed "
-               f"batch(es), augmentation {'on' if aug else 'off'}",
-               l_cpu, l_gpu, pairs,
+    bf16 = cfg.compute_dtype == "bfloat16"
+    what = (f"one {task} step over {len(micros)} packed batch(es), "
+            f"augmentation {'on' if aug else 'off'}"
+            f"{', compute_dtype bfloat16' if bf16 else ''}")
+    if bf16:
+        # the same step in float32 on the card, from the same weights: how
+        # far bf16 moves the scores, beside the CPU-vs-card difference
+        model_32, _ = run.build_model(
+            task, dataclasses.replace(cfg, compute_dtype=None), ds,
+            torch.Generator().manual_seed(41))
+        _, s_32 = Trainer(model_32, loss_cpu, params, task=task,
+                          device=DEVICE).train_step(batch, aug)
+        s_32 = s_32 if isinstance(batch, list) else [s_32]
+        d_32 = 0.0
+        for gb, b, c in zip(micros, s_gpu, s_32):
+            m = gb.node_mask if task == "sbm" else gb.graph_mask
+            d_32 = max(d_32, (b.cpu()[m] - c.cpu()[m]).abs().max().item())
+        what += (f"; the card's bf16 scores differ from its float32 ones "
+                 f"by up to {d_32:.3g}")
+    check_step(torch, what, l_cpu, l_gpu, pairs,
                param_report(torch, model_cpu, model_gpu, params.init_lr),
-               kinks_crossed(torch, cpu_calls, card_calls))
+               kinks_crossed(torch, cpu_calls, card_calls),
+               *((BF16_STEP_RTOL, BF16_STEP_ATOL) if bf16
+                 else (STEP_RTOL, STEP_ATOL)))
 
 
 def check_step(torch, what: str, l_cpu, l_gpu, pairs, params_line: str,
-               kinks: str) -> None:
-    """Prints and checks a CPU-vs-card step: the loss at STEP_RTOL, each
-    (CPU, card) pair of score tensors at STEP_RTOL / STEP_ATOL."""
+               kinks: str, rtol: float = STEP_RTOL,
+               atol: float = STEP_ATOL) -> None:
+    """Prints and checks a CPU-vs-card step: the loss at rtol, each (CPU,
+    card) pair of score tensors at rtol / atol (STEP_RTOL / STEP_ATOL in
+    float32)."""
     d_scores = max((a - b).abs().max().item() for a, b in pairs)
     d_loss = abs(float(l_cpu) - float(l_gpu))
     print(f"cpu vs cuda, {what}: |loss diff| {d_loss:.3g} (loss "
-          f"{float(l_cpu):.6f}), max |score diff| {d_scores:.3g}, "
-          f"{params_line}")
+          f"{float(l_cpu):.6f}), max |score diff| {d_scores:.3g} (rtol "
+          f"{rtol:g}, atol {atol:g}), {params_line}")
     print(f"  kinks crossed between the CPU and the card: {kinks}")
-    if not (all(torch.allclose(b, a, rtol=STEP_RTOL, atol=STEP_ATOL)
+    if not (all(torch.allclose(b, a, rtol=rtol, atol=atol)
                 for a, b in pairs)
-            and math.isclose(float(l_gpu), float(l_cpu), rel_tol=STEP_RTOL)):
+            and math.isclose(float(l_gpu), float(l_cpu), rel_tol=rtol)):
         fail(f"the card's step ({what}) disagrees with the CPU step")
 
 
@@ -977,14 +1051,39 @@ def flat_vs_block(torch, task, net, ds, params):
         fail("the flat and the block layout disagree on the card")
 
 
+def sibling(path: TrainPath):
+    """The float32 path a bf16 path repeats (its key without -bf16), or
+    None."""
+    return path.key[:-len("-bf16")] if path.key.endswith("-bf16") else None
+
+
+def check_blocks(torch, key: str, net, batch) -> None:
+    """The adjacency blocks the model builds for the batch on the card are
+    in the config's compute dtype (bf16 under compute_dtype bfloat16)."""
+    from dgn_tpu_torch.models.dgn_net import edge_context_for
+    gb = (batch[0] if isinstance(batch, list) else batch).to(DEVICE)
+    with torch.no_grad():
+        adj = edge_context_for(gb, net).adj
+    want = net.torch_compute_dtype() or torch.float32
+    print(f"path {key}: adjacency blocks {tuple(adj.shape)} {adj.dtype}, "
+          f"{adj.numel() * adj.element_size() / 2**20:.1f} MiB")
+    if adj.dtype != want:
+        fail(f"{key}: the adjacency blocks are {adj.dtype}, not {want}")
+
+
 def training_phase(torch):
     """Every path of PATHS through the entry point, each path's step, and
     each path's CPU-vs-card step (and the softmax check on ZINC's batch);
-    returns ({path: launches}, {path: net config})."""
-    out, nets = {}, {}
+    a bf16 path's launches must equal its float32 sibling's, and its
+    blocks must be bf16.  Returns ({path: launches}, {path: net config})."""
+    out, nets, figures = {}, {}, {}
     for path in PATHS:
         key = path.key
-        report, out[key] = drive_path(torch, path)
+        report, out[key], peak = drive_path(torch, path)
+        sib = sibling(path)
+        if sib is not None and out[key] != out[sib]:
+            fail(f"{key}: launches {out[key]} differ from {sib}'s "
+                 f"{out[sib]}")
         ds, model, _, trainer, loaders, cfg = _PREPARED.pop(key)
         nets[key] = model.cfg
         final = report["final"]
@@ -994,8 +1093,10 @@ def training_phase(torch):
         train = loaders["train"]
         batches = list(train)
         net, p = model.cfg, cfg.params
+        if adjacency_builds(net, is_flat(path)):
+            check_blocks(torch, key, net, batches[0])
         n_ext = path.extremes_layers * towers_of(net)
-        step_profile(
+        figures[key] = step_profile(
             torch, trainer.train_step,
             batches * math.ceil(MIN_STEPS / len(batches)),
             f"{key}, {net.type_net} hidden {net.hidden_dim} L={net.L}, batch "
@@ -1005,6 +1106,12 @@ def training_phase(torch):
             f"{' '.join(path.flags)}",
             {"build_pair_adjacency": adjacency_builds(net, is_flat(path)),
              "segment_extremes_fwd": n_ext, "segment_extremes_bwd": n_ext})
+        figures[key]["run_peak_mib"] = peak / 2**20
+        if sib is not None:
+            print(f"path {key} beside {sib} in this call: " + "; ".join(
+                f"{name} {figures[key][name]:.3f} vs {figures[sib][name]:.3f}"
+                for name in ("median_ms", "busy_ms", "ops", "peak_mib",
+                             "run_peak_mib")))
         # dropout 0: the CPU and CUDA generators draw different masks
         cpu_vs_card(torch, cfg.task, dataclasses.replace(
             model.cfg, dropout=0.0, in_feat_dropout=0.0), ds, p, batches[0])
@@ -1029,6 +1136,7 @@ def collab_phase(torch, np):
     argv = ["--dataset", "COLLAB", "--synthetic_size", str(COLLAB_NODES)]
     counters = launch_counters()
     n_loads = len(_LOADS)
+    torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
     t0 = time.time()
@@ -1039,7 +1147,9 @@ def collab_phase(torch, np):
     print(f"path collab: dgn_tpu_torch.run {' '.join(argv)} --epochs "
           f"{EPOCHS} -> {wall:.1f}s, best val hits@50 "
           f"{report['best_val_hits@50']}, test at best "
-          f"{report['test_at_best_val']}, launches {launches} (expected 0)")
+          f"{report['test_at_best_val']}, launches {launches} (expected 0), "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     if len(_LOADS) != n_loads + 1:
         fail("collab: the run did not load its dataset once through "
              "share_datasets' cache")
@@ -1089,6 +1199,163 @@ def collab_phase(torch, np):
     return launches
 
 
+RECIPE_DIR = REPO / "out" / "chip_smoke_recipe"
+RECIPE_SIZE = 1024      # the ZINC path's size: its dataset is built once
+
+
+def run_captured(argv) -> tuple:
+    """(report, printed text) of the entry point on argv; the text is
+    printed too."""
+    import io
+    from dgn_tpu_torch import run
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        report = run.run(argv)
+    print(buf.getvalue(), end="")
+    return report, buf.getvalue()
+
+
+def recipe_phase(torch, np) -> None:
+    """The training recipe through the entry point on the card, under
+    out/chip_smoke_recipe (emptied first): checkpoint and resume, the
+    restore bit for bit, --seeds, tools/report.py, poison_padding and
+    profile_steps."""
+    import shutil
+    from dgn_tpu_torch import observe, run
+    from dgn_tpu_torch.config import config_from_args
+    from dgn_tpu_torch.graph import bucket_sizes_for, pack_graphs
+    from dgn_tpu_torch.ops import extremes
+    from dgn_tpu_torch.tools import report as treport
+    from dgn_tpu_torch.train.checkpoint import Checkpointer
+
+    shutil.rmtree(RECIPE_DIR, ignore_errors=True)
+    base = ["--config", str(CONFIGS / ZINC), "--synthetic_size",
+            str(RECIPE_SIZE), "--device", DEVICE]
+    ck, o1 = str(RECIPE_DIR / "ck"), str(RECIPE_DIR / "run")
+    t0 = time.time()
+    first, _ = run_captured(base + ["--epochs", "2", "--checkpoint", ck,
+                                    "--out_dir", o1])
+    if first["epochs_run"] != 2 or Checkpointer(ck).list() != [0, 1]:
+        fail(f"recipe: --checkpoint ran {first['epochs_run']} epochs and "
+             f"left snapshots {Checkpointer(ck).list()}")
+    second, text = run_captured(base + ["--epochs", "3", "--checkpoint", ck,
+                                        "--resume", "--out_dir", o1])
+    if "resumed from epoch 1" not in text or second["epochs_run"] != 1 \
+            or Checkpointer(ck).list() != [0, 1, 2]:
+        fail(f"recipe: --resume ran {second['epochs_run']} epochs, "
+             f"snapshots {Checkpointer(ck).list()}")
+    # the last snapshot into a fresh trainer on the card, bit for bit
+    cfg, _ = config_from_args(base + ["--epochs", "3"])
+    _, model, _, trainer, loaders = run.prepare(cfg, DEVICE)
+    if Checkpointer(ck).restore(trainer) != 3:
+        fail("recipe: the restore does not continue at epoch 3")
+    with np.load(str(RECIPE_DIR / "ck" / "ckpt_000002.npz")) as saved:
+        names = list(model.state_dict())
+        same = all(torch.equal(model.state_dict()[k].cpu(),
+                               torch.from_numpy(saved[k])) for k in names)
+        devices = {t.device.type for t in model.state_dict().values()}
+        print(f"recipe: checkpoint/resume ran 2 + 1 epochs; the epoch-2 "
+              f"snapshot restored into a fresh trainer on {devices}: "
+              f"{len(names)} state_dict entries bit for bit equal: {same}")
+    if not same or devices != {torch.device(DEVICE).type}:
+        fail("recipe: the restored state differs from the snapshot")
+
+    ck2, o2 = str(RECIPE_DIR / "ck_seeds"), str(RECIPE_DIR / "seeds")
+    seeds, text = run_captured(base + ["--epochs", "1", "--seeds", "41,42",
+                                       "--checkpoint", ck2, "--out_dir", o2])
+    agg = seeds["test_at_best_val"]["mae"]
+    per_seed = all((Path(o2) / f"seed{s}" / "metrics.jsonl").is_file()
+                   and Checkpointer(f"{ck2}/seed{s}").list() == [0]
+                   for s in (41, 42))
+    if "[dgn_tpu_torch] SEEDS {" not in text or not per_seed or not (
+            math.isfinite(agg["mean"]) and math.isfinite(agg["std"])):
+        fail(f"recipe: --seeds gave {seeds} (per-seed outputs {per_seed})")
+
+    rows = treport.load_epochs(f"{o1}/metrics.jsonl")
+    summary = treport.summarize(rows)
+    print(treport.to_markdown(summary, "tools/report.py on the recipe run"))
+    if summary["epochs"] != 3 or summary["metric"] != "mae" \
+            or "edges_per_s" not in summary["throughput"]:
+        fail(f"recipe: tools/report.py summarised {summary}")
+
+    poison_check(torch, np, observe, extremes, bucket_sizes_for, pack_graphs)
+
+    batch = next(iter(loaders["train"]))
+    trace_dir = RECIPE_DIR / "trace"
+    loss, _ = observe.profile_steps(trainer.train_step, 3, str(trace_dir),
+                                    batch)
+    trace = trace_dir / "trace.json"
+    size = trace.stat().st_size if trace.is_file() else 0
+    print(f"recipe: profile_steps wrote {trace} ({size} bytes) over 3 "
+          f"train steps, last loss {float(loss):.6f}; recipe phase "
+          f"{time.time() - t0:.1f}s")
+    if size == 0 or not math.isfinite(float(loss)):
+        fail("recipe: profile_steps wrote no trace")
+
+
+def poison_check(torch, np, observe, extremes, bucket_sizes_for,
+                 pack_graphs) -> None:
+    """poison_padding on the card.  The flat layout: the eval scores of
+    ZINC's and HIV's first batch_size train graphs under poison equal the
+    clean ones, finite (POISON_RTOL / POISON_ATOL).  The block layout: the
+    extremes pair on HIV's block batch with NaN in every pad edge's lane
+    gives the clean forward exactly and the clean backward, 0 at every pad
+    edge; and the model's eval scores on ZINC's block batch under poison,
+    which both packages let pad rows into (0 * NaN in the dense block
+    products), are reported."""
+    from dgn_tpu_torch import run
+    from dgn_tpu_torch.config import config_from_args
+    dev = torch.device(DEVICE)
+    for key in ("zinc-flat", "hiv-flat"):
+        path = next(p for p in PATHS if p.key == key)
+        cfg, _ = config_from_args(path_argv(path))
+        ds, model, _, _, _ = run.prepare(cfg, DEVICE)
+        graphs = ds.train[:cfg.params.batch_size]
+        n_pad, e_pad = bucket_sizes_for(graphs, len(graphs))
+        gb = pack_graphs(graphs, n_pad=n_pad, e_pad=e_pad,
+                         g_pad=len(graphs)).to(dev)
+        model.eval()
+        with torch.no_grad():
+            clean = model(gb)[gb.graph_mask]
+            poisoned = model(observe.poison_padding(gb))[gb.graph_mask]
+        d = (poisoned - clean).abs().max().item()
+        print(f"recipe: poison_padding, {key} eval over {len(graphs)} "
+              f"graphs: {int((~torch.isfinite(poisoned)).sum())} non-finite "
+              f"scores, max |poisoned - clean| {d:.3g}")
+        if not (torch.isfinite(poisoned).all() and torch.allclose(
+                poisoned, clean, rtol=POISON_RTOL, atol=POISON_ATOL)):
+            fail(f"recipe: a pad lane reached {key}'s scores")
+        if key == "zinc-flat":
+            block = packed(graphs).to(dev)
+            with torch.no_grad():
+                bad = model(observe.poison_padding(block))[block.graph_mask]
+            print(f"recipe: poison_padding, ZINC eval on the block layout: "
+                  f"{int((~torch.isfinite(bad)).sum())} of {bad.numel()} "
+                  "scores non-finite (pad rows meet zero block entries)")
+    from dgn_tpu_torch.data.synthetic import synthetic_ogb_mol
+    hiv = packed(synthetic_ogb_mol(512, seed=41, n_tasks=1, k_eig=4)[:128])
+    layout, mask = hiv.mxu.to(dev), hiv.edge_mask.to(dev)
+    n, f = hiv.num_nodes_padded, 70
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.normal(size=(hiv.num_edges_padded, f)).astype(
+        np.float32)).to(dev)
+    x_bad = torch.where(mask[:, None], x, float("nan"))
+    dmx, dmn = (torch.from_numpy(rng.normal(size=(n, f)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    mx, mn = extremes.segment_extremes_fwd(x, layout, mask, n)
+    bmx, bmn = extremes.segment_extremes_fwd(x_bad, layout, mask, n)
+    g = extremes.segment_extremes_bwd(x, mx, mn, dmx, dmn, layout, mask)
+    g_bad = extremes.segment_extremes_bwd(x_bad, bmx, bmn, dmx, dmn, layout,
+                                          mask)
+    ok = (torch.equal(mx, bmx) and torch.equal(mn, bmn)
+          and torch.equal(g, g_bad) and not g_bad[~mask].any())
+    print(f"recipe: poison_padding, the extremes pair on HIV's block batch "
+          f"with NaN in all {int((~mask).sum())} pad edges' lanes: forward "
+          f"and backward equal to the clean calls, pad gradient 0: {ok}")
+    if not ok:
+        fail("recipe: the extremes pair read a pad edge's lane")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", choices=("all", "kernels"),
@@ -1106,9 +1373,15 @@ def main() -> None:
     sys.path.insert(0, str(REPO))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(f"card: {card_line()}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}")
+    # the bf16 block products (ops/mxu.py) need torch.bmm's out_dtype on
+    # bf16 operands
+    ones = torch.ones((1, 2, 2), device=DEVICE, dtype=torch.bfloat16)
+    print(f"torch.bmm(bf16, bf16, out_dtype=float32): "
+          f"{torch.bmm(ones, ones, out_dtype=torch.float32).dtype}")
 
     from dgn_tpu_torch.ops import cuda_build
     t = time.time()
@@ -1133,6 +1406,7 @@ def main() -> None:
         return
     launches, nets = training_phase(torch)
     launches["collab"] = collab_phase(torch, np)
+    recipe_phase(torch, np)
     # `launches` is the kernel's count on the path whose shape the entry
     # timed ("path"); the counts of every path stand beside it (COLLAB's
     # checked to be 0 in collab_phase)

@@ -4,7 +4,9 @@
 The same JSON schema as the reference package (configs/*.json): the
 dataclass field names are the schema, unknown keys are rejected, and every
 CLI flag that is given overrides the JSON value.  The flags are those of the
-reference run script as far as this slice goes, plus `--device`.
+reference run script, plus `--device`; the multi-device and multi-host
+flags (`--n_devices`, `--partition`, `--multihost` and its addresses) are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -175,16 +177,29 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--synthetic_size", type=int, default=None)
     ap.add_argument("--layout", type=str, default=None,
                     choices=["auto", "flat", "mxu"])
-    ap.add_argument("--compute_dtype", type=str, default=None)
+    ap.add_argument("--compute_dtype", type=str, default=None,
+                    help="bfloat16: the block layout's products on bf16 "
+                         "operands, f32 accumulation (default float32)")
     ap.add_argument("--geometry", type=str, default=None,
                     choices=["typical", "worst"])
     ap.add_argument("--n_buckets", type=int, default=None)
     ap.add_argument("--micro_batches", type=str, default=None)
+    # the run's recipe (run.run_one / run.run_seeds), not config fields
+    ap.add_argument("--checkpoint", type=str, default=None,
+                    help="checkpoint directory: a snapshot per epoch")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the newest snapshot in --checkpoint")
+    ap.add_argument("--seeds", type=str, default=None,
+                    help="comma-separated seeds, e.g. 41,42,43,44: one run "
+                         "per seed and their mean ± std")
     return ap
+
+
+RUN_FLAGS = ("config", "device", "checkpoint", "resume", "seeds")
 
 
 def config_from_args(argv=None) -> tuple:
     ap = build_argparser()
     args = ap.parse_args(argv)
-    ov = {k: v for k, v in vars(args).items() if k not in ("config", "device")}
+    ov = {k: v for k, v in vars(args).items() if k not in RUN_FLAGS}
     return load_config(args.config, ov), args

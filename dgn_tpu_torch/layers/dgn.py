@@ -52,7 +52,13 @@ pools with `mxu.graph_pool_sum` and broadcasts to the real nodes; on the
 flat one it pools with a masked segment_sum over node_graph and gathers
 vn_h[node_graph] for every node slot, as dgn_tpu does.
 
-Not ported yet: bf16 (compute_dtype) and the sync-BN axis (bn_axis).
+compute_dtype (a torch dtype or None; the model resolves its config's
+string) goes to every layer and tower: on the block layout their edge
+stage rounds as dgn_tpu's does (ops/mxu.py, ops/aggregators.py), the
+per-edge path's gathers of h at src and dst included.  The flat layout,
+the pretrans and posttrans and the virtual node stay float32.
+
+Not ported yet: the sync-BN axis (bn_axis).
 """
 from __future__ import annotations
 
@@ -102,15 +108,16 @@ def _fused_posttrans(kernel, bias, h_in, h_agg, gb: GraphBatch,
     return out
 
 
-def _edge_context(gb: GraphBatch, names, decomposed: bool):
+def _edge_context(gb: GraphBatch, names, decomposed: bool,
+                  compute_dtype: Optional[torch.dtype]):
     """The EdgeContext the model attached, else one for this layer alone
-    (dgn_tpu/layers/dgn.py:47-79): decomposed, or per-edge with the flat
-    layout's normalizers."""
+    (dgn_tpu/layers/dgn.py:47-79): decomposed, with its blocks in
+    compute_dtype, or per-edge with the flat layout's normalizers."""
     if gb.edge_ctx is not None:
         return gb.edge_ctx
     return agg_ops.build_edge_context(
         gb.eig, gb.src, gb.dst, gb.edge_mask, gb.in_degree, names,
-        mxu_layout=gb.mxu, decomposed=decomposed,
+        mxu_layout=gb.mxu, decomposed=decomposed, adj_dtype=compute_dtype,
         need_norms=gb.mxu is None and not decomposed)
 
 
@@ -125,8 +132,10 @@ class _DGNLayer(nn.Module):
                  scalers: Sequence[str], avg_d: Dict[str, float],
                  generator: torch.Generator, dropout: float,
                  graph_norm: bool, batch_norm: bool, residual: bool,
-                 posttrans_layers: int, input_concat: bool):
+                 posttrans_layers: int, input_concat: bool,
+                 compute_dtype: Optional[torch.dtype]):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.aggregators = tuple(agg_ops.parse_names(aggregators))
         self.scalers = tuple(scalers)
         self.avg_d = avg_d
@@ -141,6 +150,12 @@ class _DGNLayer(nn.Module):
             LinearParams(width, out_dim, generator) if posttrans_layers == 1
             else MLP(width, out_dim, out_dim, posttrans_layers, generator))
         self.batchnorm_h = MaskedBatchNorm(out_dim) if batch_norm else None
+
+    def _gather(self, gb: GraphBatch, h: torch.Tensor,
+                index: torch.Tensor) -> torch.Tensor:
+        """h[index], rounded as compute_dtype asks on the block layout."""
+        return mxu.gather(h, index,
+                          self.compute_dtype if gb.mxu is not None else None)
 
     def _posttrans(self, gb: GraphBatch, h_in: Optional[torch.Tensor],
                    agg: torch.Tensor) -> torch.Tensor:
@@ -176,21 +191,26 @@ class DGNLayerSimple(_DGNLayer):
                  scalers: Sequence[str], avg_d: Dict[str, float],
                  generator: torch.Generator, dropout: float = 0.0,
                  graph_norm: bool = True, batch_norm: bool = True,
-                 residual: bool = True, posttrans_layers: int = 1):
+                 residual: bool = True, posttrans_layers: int = 1,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__(in_dim, out_dim, aggregators, scalers, avg_d,
                          generator, dropout, graph_norm, batch_norm, residual,
-                         posttrans_layers, input_concat=False)
+                         posttrans_layers, input_concat=False,
+                         compute_dtype=compute_dtype)
 
     def forward(self, gb: GraphBatch, h: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 e: Optional[torch.Tensor] = None) -> torch.Tensor:
-        ctx = _edge_context(gb, self.aggregators, True)
+        ctx = _edge_context(gb, self.aggregators, True, self.compute_dtype)
         if ctx.decomposed:
-            agg = agg_ops.aggregate_decomposed(self.aggregators, ctx, h, None,
-                                               h, layout=gb.mxu)
+            agg = agg_ops.aggregate_decomposed(
+                self.aggregators, ctx, h, None, h, layout=gb.mxu,
+                compute_dtype=self.compute_dtype)
         else:
             agg = agg_ops.aggregate(self.aggregators, ctx,
-                                    gather(h, ctx.src), h, layout=gb.mxu)
+                                    self._gather(gb, h, ctx.src), h,
+                                    layout=gb.mxu,
+                                    compute_dtype=self.compute_dtype)
         return self._tail(gb, h, self._posttrans(gb, None, agg), generator)
 
 
@@ -204,10 +224,12 @@ class DGNLayerComplex(_DGNLayer):
                  generator: torch.Generator, dropout: float = 0.0,
                  graph_norm: bool = True, batch_norm: bool = True,
                  residual: bool = True, posttrans_layers: int = 1,
-                 edge_dim: int = 0, pretrans_layers: int = 1):
+                 edge_dim: int = 0, pretrans_layers: int = 1,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__(in_dim, out_dim, aggregators, scalers, avg_d,
                          generator, dropout, graph_norm, batch_norm, residual,
-                         posttrans_layers, input_concat=True)
+                         posttrans_layers, input_concat=True,
+                         compute_dtype=compute_dtype)
         self.pretrans_layers = pretrans_layers
         width = 2 * in_dim + edge_dim
         self.pretrans = (
@@ -217,20 +239,22 @@ class DGNLayerComplex(_DGNLayer):
     def forward(self, gb: GraphBatch, h: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 e: Optional[torch.Tensor] = None) -> torch.Tensor:
-        ctx = _edge_context(gb, self.aggregators, self.pretrans_layers == 1)
+        ctx = _edge_context(gb, self.aggregators, self.pretrans_layers == 1,
+                            self.compute_dtype)
         if ctx.decomposed and self.pretrans_layers == 1:
             g_node, q_node, c_edge = _linear_pretrans_parts(
                 self.pretrans.kernel, self.pretrans.bias, h, e)
-            agg = agg_ops.aggregate_decomposed(self.aggregators, ctx, g_node,
-                                               q_node, h, c_edge=c_edge,
-                                               layout=gb.mxu)
+            agg = agg_ops.aggregate_decomposed(
+                self.aggregators, ctx, g_node, q_node, h, c_edge=c_edge,
+                layout=gb.mxu, compute_dtype=self.compute_dtype)
         else:
-            z = [gather(h, ctx.src), gather(h, ctx.dst)]
+            z = [self._gather(gb, h, ctx.src), self._gather(gb, h, ctx.dst)]
             z = torch.cat(z if e is None else z + [e], dim=-1)
             msg = (z @ self.pretrans.kernel + self.pretrans.bias
                    if self.pretrans_layers == 1 else self.pretrans(z))
             agg = agg_ops.aggregate(self.aggregators, ctx, msg, h,
-                                    layout=gb.mxu)
+                                    layout=gb.mxu,
+                                    compute_dtype=self.compute_dtype)
         return self._tail(gb, h, self._posttrans(gb, h, agg), generator)
 
 
@@ -246,11 +270,13 @@ class DGNTower(DGNLayerComplex):
                  generator: torch.Generator, dropout: float = 0.0,
                  graph_norm: bool = True, batch_norm: bool = True,
                  posttrans_layers: int = 1, edge_dim: int = 0,
-                 pretrans_layers: int = 1):
+                 pretrans_layers: int = 1,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__(in_dim, out_dim, aggregators, scalers, avg_d,
                          generator, dropout, graph_norm, batch_norm,
                          residual=False, posttrans_layers=posttrans_layers,
-                         edge_dim=edge_dim, pretrans_layers=pretrans_layers)
+                         edge_dim=edge_dim, pretrans_layers=pretrans_layers,
+                         compute_dtype=compute_dtype)
 
 
 class DGNLayerTower(nn.Module):
@@ -265,7 +291,8 @@ class DGNLayerTower(nn.Module):
                  divide_input: bool = True, dropout: float = 0.0,
                  graph_norm: bool = True, batch_norm: bool = True,
                  residual: bool = False, posttrans_layers: int = 1,
-                 edge_dim: int = 0, pretrans_layers: int = 1):
+                 edge_dim: int = 0, pretrans_layers: int = 1,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if divide_input and in_dim % towers != 0:
             raise ValueError("towers must divide in_dim when divide_input")
@@ -280,7 +307,8 @@ class DGNLayerTower(nn.Module):
                 self.input_tower, out_dim // towers, aggregators, scalers,
                 avg_d, generator, dropout=dropout, graph_norm=graph_norm,
                 batch_norm=batch_norm, posttrans_layers=posttrans_layers,
-                edge_dim=edge_dim, pretrans_layers=pretrans_layers))
+                edge_dim=edge_dim, pretrans_layers=pretrans_layers,
+                compute_dtype=compute_dtype))
         self.mixing = (FCLayer(out_dim, out_dim, generator, "leakyrelu")
                        if towers > 1 else None)
 

@@ -34,9 +34,16 @@ The positional encoding is the batch's `pos_enc` where it carries one
 eig[:, 1:P+1] of the batch.  Its Linear takes the width that slice has,
 min(P, k_eig - 1); flax infers it, here the caller passes it (pos_enc_in).
 
+compute_dtype "bfloat16" (`--compute_dtype`) rounds the block layout's
+edge stage as dgn_tpu does: the adjacency blocks are built in bfloat16 (the
+CUDA kernel's bf16 output mode on the card) and every layer's products,
+gathers and scatters take bfloat16-rounded operands with float32
+accumulation (ops/mxu.py).  None and "float32" run float32 throughout.
+
 `DGNConfig` keeps the reference's full field set so the same JSON configs
 load; `DGNModel` raises NotImplementedError for any value the port does not
-cover yet (bf16 compute_dtype, the sync-BN bn_axis) instead of silently
+cover yet (a compute_dtype other than float32 and bfloat16, which the
+adjacency kernel cannot write; the sync-BN bn_axis) instead of silently
 running something else.
 """
 from __future__ import annotations
@@ -98,6 +105,18 @@ class DGNConfig:
     def scaler_names(self) -> Tuple[str, ...]:
         return tuple(scaler_ops.parse_names(self.scalers))
 
+    def torch_compute_dtype(self) -> Optional[torch.dtype]:
+        """compute_dtype as the layers take it: torch.bfloat16, or None for
+        float32 (None or "float32", which round nothing)."""
+        if self.compute_dtype in (None, "float32"):
+            return None
+        if self.compute_dtype == "bfloat16":
+            return torch.bfloat16
+        raise NotImplementedError(
+            f"DGNConfig.compute_dtype={self.compute_dtype!r} is not ported "
+            "(float32 or bfloat16: the adjacency kernel writes no other "
+            "dtype)")
+
 
 def check_ported(cfg: DGNConfig) -> None:
     """Raise NotImplementedError for a configuration the port lacks."""
@@ -108,11 +127,11 @@ def check_ported(cfg: DGNConfig) -> None:
     if cfg.edge_feat and cfg.edge_encoder not in ("embedding", "linear",
                                                   "bond"):
         raise ValueError(f"unknown edge_encoder {cfg.edge_encoder!r}")
-    for name in ("bn_axis", "compute_dtype"):
-        if getattr(cfg, name) is not None:
-            raise NotImplementedError(
-                f"DGNConfig.{name}={getattr(cfg, name)!r} is not ported yet "
-                f"(the port runs {name}=None)")
+    if cfg.bn_axis is not None:
+        raise NotImplementedError(
+            f"DGNConfig.bn_axis={cfg.bn_axis!r} is not ported yet (the port "
+            "runs bn_axis=None)")
+    cfg.torch_compute_dtype()
     cfg.agg_names()             # KeyError for an unknown aggregator
 
 
@@ -127,11 +146,14 @@ def decomposes(cfg: DGNConfig) -> bool:
 def edge_context_for(gb: GraphBatch, cfg: DGNConfig) -> agg_ops.EdgeContext:
     """The EdgeContext DGNModel attaches.  It depends only on (eig, edges,
     layout), not on the parameters, so fixed batches can reuse it.  The
-    flat per-edge path takes the directional normalizers (need_norms)."""
+    flat per-edge path takes the directional normalizers (need_norms); the
+    adjacency blocks come in the config's compute dtype (bfloat16 or
+    float32)."""
     decomposed = decomposes(cfg)
     return agg_ops.build_edge_context(
         gb.eig, gb.src, gb.dst, gb.edge_mask, gb.in_degree,
         names=cfg.agg_names(), mxu_layout=gb.mxu, decomposed=decomposed,
+        adj_dtype=cfg.torch_compute_dtype(),
         need_norms=gb.mxu is None and not decomposed)
 
 
@@ -197,7 +219,8 @@ class DGNModel(nn.Module):
                 residual=cfg.residual, posttrans_layers=cfg.posttrans_layers,
                 towers=cfg.towers, divide_input=divide,
                 edge_dim=cfg.edge_dim if cfg.edge_feat else 0,
-                pretrans_layers=cfg.pretrans_layers))
+                pretrans_layers=cfg.pretrans_layers,
+                compute_dtype=cfg.torch_compute_dtype()))
             if self.use_vn and not last:
                 self.add_module(f"virtual_node_{i}", VirtualNode(
                     cfg.hidden_dim, generator, dropout=cfg.dropout,

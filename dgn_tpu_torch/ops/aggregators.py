@@ -47,7 +47,16 @@ S_k(v) = sum_{e->v} |d_e|:
   dir{k}-0.1 / -neg-0.1 : sum_e softmax_e(+-0.1 |d_e|) msg_e; the weights
                        sum to 1 at a node with an edge, to 0 without one
 
-Not ported: the edge-partitioned split and bf16 inputs (compute_dtype).
+compute_dtype (a torch dtype or None) rounds the block layout's products as
+dgn_tpu does (`ops/mxu.py` says how): the pair matmuls (gp * gp for
+var/std included), the per-edge gather ge that max/min and the scatter
+branch read, the c_e scatter and the scatter branch itself, and on the
+per-edge path the weighted-sum scatter.  The weight totals, the extremes
+(which take the rounded ge as it is) and the softmax families do not
+round, and the flat layout rounds nothing, as in dgn_tpu.  The adjacency
+blocks come in the dtype build_edge_context's adj_dtype gave them.
+
+Not ported: the edge-partitioned split.
 """
 from __future__ import annotations
 
@@ -259,12 +268,15 @@ def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
                          g_node: torch.Tensor, q_node: Optional[torch.Tensor],
                          h_in: torch.Tensor,
                          c_edge: Optional[torch.Tensor] = None,
-                         layout: Optional[mxu.MXULayout] = None
+                         layout: Optional[mxu.MXULayout] = None,
+                         compute_dtype: Optional[torch.dtype] = None
                          ) -> torch.Tensor:
     """All aggregators over msg_e = g[src_e] + q[dst_e] (+ c_edge[e]),
     concatenated on the feature axis -> [N, len(names) * F].  q_node and
-    c_edge may be None (0).  layout None: the flat layout."""
+    c_edge may be None (0).  layout None: the flat layout, where
+    compute_dtype is ignored."""
     names = list(names)
+    cd = compute_dtype if layout is not None else None
     if not ctx.decomposed:
         raise ValueError("a per-edge edge context holds no weight families: "
                          "build it with decomposed=True")
@@ -283,7 +295,7 @@ def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
     # the per-edge values ge: for max/min, and for the scatter branch
     ge = None
     if not use_adj or "max" in names or "min" in names:
-        ge = gather(g_node, ctx.src)
+        ge = mxu.gather(g_node, ctx.src, cd)
         if c_edge is not None:
             ge = ge + c_edge
 
@@ -291,19 +303,19 @@ def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
     if full_keys and use_adj:
         nb = layout.n_node_blocks
         gp = g_node.reshape(nb, mxu.TILE, f)[layout.pair_src]   # [P, T, F]
-        T = mxu.pair_adj_matmul(ctx.adj, gp)                     # [P, K, T, F]
+        T = mxu.pair_adj_matmul(ctx.adj, gp, cd)                 # [P, K, T, F]
         Sb = segment_sum(T, layout.pair_dst, nb)                 # [nb, K, T, F]
         Sb = Sb.transpose(0, 1).reshape(len(full_keys), -1, f)
         S = {k: Sb[i][:n] for i, k in enumerate(full_keys)}
         if need_sq:                                 # c_edge is None here
             one = ctx.adj[:, full_keys.index("one")]
-            T2 = mxu.pair_adj_matmul(one[:, None], gp * gp)[:, 0]  # [P,T,F]
+            T2 = mxu.pair_adj_matmul(one[:, None], gp * gp, cd)[:, 0]
             S2 = segment_sum(T2, layout.pair_dst, nb)
             S["one"] = torch.cat([S["one"], S2.reshape(-1, f)[:n]], dim=1)
         if c_edge is not None:
             sc, _ = mxu.weighted_segment_sums(
                 c_edge, torch.stack([ctx.fam_w[k] for k in full_keys]),
-                layout, n, n_full=len(full_keys))
+                layout, n, n_full=len(full_keys), compute_dtype=cd)
             for i, k in enumerate(full_keys):
                 S[k] = S[k] + sc[i]
     elif full_keys:
@@ -317,7 +329,7 @@ def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
         wide = torch.cat(cols, dim=1)
         out = (mxu.block_scatter_sum(wide, layout.local_dst,
                                      layout.edge_chunk_dst,
-                                     layout.n_node_blocks)[:n]
+                                     layout.n_node_blocks, cd)[:n]
                if layout is not None else segment_sum(wide, ctx.dst, n))
         S = {k: out[:, a:b] for k, (a, b) in bounds.items()}
 
@@ -402,9 +414,11 @@ def _fusable(name: str) -> bool:
     return d is not None and d[1] in _FUSABLE_DIR
 
 
-def _fused_aggregate(names, ctx: EdgeContext, msg, h_in, layout):
+def _fused_aggregate(names, ctx: EdgeContext, msg, h_in, layout,
+                     compute_dtype=None):
     """Every weighted-sum aggregator of `names` over the per-edge messages
-    in one weighted_segment_sums scatter -> {name: [N, F]}."""
+    in one weighted_segment_sums scatter (rounded to compute_dtype when
+    given) -> {name: [N, F]}."""
     f = msg.shape[1]
     need_sq = any(n in ("var", "std") for n in names)
     specs, full = {}, {}          # row key -> weight [E], needs full sums
@@ -438,7 +452,8 @@ def _fused_aggregate(names, ctx: EdgeContext, msg, h_in, layout):
     mask = ctx.edge_mask.to(msg.dtype)
     W = torch.stack([specs[k] * mask for k in keys])
     sums, totals = mxu.weighted_segment_sums(msg_aug, W, layout,
-                                             ctx.num_nodes, n_full=n_full)
+                                             ctx.num_nodes, n_full=n_full,
+                                             compute_dtype=compute_dtype)
     S = {k: (sums[i] if i < n_full else None, totals[i])
          for i, k in enumerate(keys)}
 
@@ -524,17 +539,20 @@ def _agg_xla(name: str, ctx: EdgeContext, msg, h_in):
 
 def aggregate(names: Sequence[str], ctx: EdgeContext, msg: torch.Tensor,
               h_in: torch.Tensor,
-              layout: Optional[mxu.MXULayout] = None) -> torch.Tensor:
+              layout: Optional[mxu.MXULayout] = None,
+              compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """All aggregators over the per-edge messages msg [E, F] (every padded
     edge; pad edges never reach a reduction), concatenated on the feature
     axis -> [N, len(names) * F] (reference nets/dgn_layer.py:94).  layout
-    None: the flat layout, one segment op per aggregator."""
+    None: the flat layout, one segment op per aggregator, compute_dtype
+    ignored; on the block layout it rounds the weighted-sum scatter."""
     names = list(names)
     if layout is None:
         outs = [_agg_xla(n, ctx, msg, h_in) for n in names]
         return torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
     fuse = [n for n in names if _fusable(n)]
-    out = _fused_aggregate(fuse, ctx, msg, h_in, layout) if fuse else {}
+    out = (_fused_aggregate(fuse, ctx, msg, h_in, layout, compute_dtype)
+           if fuse else {})
     if "max" in names or "min" in names:
         out["max"], out["min"] = extremes.segment_extremes(
             msg, layout, ctx.edge_mask, ctx.num_nodes)

@@ -13,8 +13,28 @@ per-edge message path reduces every weighted sum of a layer in one scatter
 The reference expresses gathers and scatters as one-hot matmuls because
 XLA:TPU scatters are slow; that is a TPU workaround.  Here the scatters
 are plain `index_add_` on global indices, and the reference's
-`gather_src`/`gather_dst` (`block_gather`) are `segment.gather` on the
-batch's global src/dst, which the layout's local indices reproduce.
+`gather_src`/`gather_dst` (`block_gather`) are `gather` on the batch's
+global src/dst, which the layout's local indices reproduce.
+
+compute_dtype (a torch dtype, bfloat16 in practice; None = float32
+throughout).  The reference runs its block-layout products on operands
+rounded to compute_dtype with float32 accumulation and a float32 result,
+in the forward AND the backward product (`dgn_tpu/ops/mxu.py:364-450`).
+Plain autograd through `x.to(torch.bfloat16)` does not do that: the
+cotangent of a float32 result is not rounded, and a bfloat16 result rounds
+the sum.  So each primitive here is an autograd Function that rounds its
+operand on the way in and the incoming gradient on the way back:
+  * pair_adj_matmul: the blocks and gp rounded, float32 accumulation (on
+    CUDA `torch.bmm(..., out_dtype=torch.float32)` on bfloat16 operands, on
+    the CPU the float32 product of the rounded operands); backward the
+    same with the rounded cotangent.  Each product of two bfloat16 values
+    is exact in float32, so the two routes differ only in summation order;
+  * block_scatter_sum / weighted_segment_sums: a float32 `index_add_` of
+    the rounded data (the reference's one-hot product over a chunk), whose
+    backward gathers the rounded cotangent;
+  * gather: the rows of the rounded table; backward an `index_add_` of
+    the rounded cotangent.
+graph_pool_sum and graph_broadcast never round, as in the reference.
 """
 from __future__ import annotations
 
@@ -25,6 +45,7 @@ import numpy as np
 import torch
 
 from . import adjacency
+from . import segment
 from .segment import segment_sum
 
 TILE = 128
@@ -150,13 +171,83 @@ def build_mxu_layout(src: np.ndarray, dst: np.ndarray, edge_mask: np.ndarray,
         pair_covered=t(pair_covered))
 
 
-def pair_adj_matmul(W: torch.Tensor, gp: torch.Tensor) -> torch.Tensor:
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x rounded to dtype, kept in x's dtype."""
+    return x.to(dtype).to(x.dtype)
+
+
+class _Round(torch.autograd.Function):
+    """Identity with rounding to compute_dtype: of the value on the way
+    forward (fwd) and of the gradient on the way back (bwd)."""
+
+    @staticmethod
+    def forward(ctx, x, compute_dtype, fwd: bool, bwd: bool):
+        ctx.compute_dtype, ctx.bwd = compute_dtype, bwd
+        return _rounded(x, compute_dtype) if fwd else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_rounded(g, ctx.compute_dtype) if ctx.bwd else g,
+                None, None, None)
+
+
+def _lowp_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [P, K, T, T] @ b [P, K or 1, T, F] -> float32 [P, K, T, F] on
+    operands already in a low-precision dtype, accumulating in float32."""
+    if a.device.type == "cuda":
+        p, k, t, _ = a.shape
+        f = b.shape[-1]
+        out = torch.bmm(a.reshape(p * k, t, t),
+                        b.expand(p, k, t, f).reshape(p * k, t, f),
+                        out_dtype=torch.float32)
+        return out.view(p, k, t, f)
+    return torch.matmul(a.float(), b.float())
+
+
+class _PairAdjMatmulCast(torch.autograd.Function):
+    """pair_adj_matmul on operands rounded to compute_dtype, float32
+    accumulation and result, forward and backward; W gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, W, gp, compute_dtype):
+        w = W.to(compute_dtype)
+        ctx.save_for_backward(w)
+        ctx.compute_dtype = compute_dtype
+        return _lowp_matmul(w.transpose(-1, -2),
+                            gp.to(compute_dtype).unsqueeze(1))
+
+    @staticmethod
+    def backward(ctx, dT):
+        (w,) = ctx.saved_tensors
+        d_gp = _lowp_matmul(w, dT.to(ctx.compute_dtype)).sum(1)
+        return None, d_gp, None
+
+
+def pair_adj_matmul(W: torch.Tensor, gp: torch.Tensor,
+                    compute_dtype: Optional[torch.dtype] = None
+                    ) -> torch.Tensor:
     """out[p,k,j,:] = sum_i W[p,k,i,j] * gp[p,i,:].
 
     W: [P, K, TILE, TILE] adjacency blocks (batch constants, no gradient);
     gp: [P, TILE, F] src node blocks gathered per pair.  Note the transpose
-    of W in i/j: rows of a block are src nodes, columns dst nodes."""
-    return torch.matmul(W.transpose(-1, -2), gp.unsqueeze(1))
+    of W in i/j: rows of a block are src nodes, columns dst nodes.  With
+    compute_dtype both products (forward and gp's gradient) take operands
+    rounded to it and accumulate in float32; the result is float32."""
+    if compute_dtype is None:
+        return torch.matmul(W.transpose(-1, -2), gp.unsqueeze(1))
+    return _PairAdjMatmulCast.apply(W, gp, compute_dtype)
+
+
+def gather(h: torch.Tensor, index: torch.Tensor,
+           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """h[index] rows (the reference's gather_src/gather_dst on the block
+    layout).  With compute_dtype the rows come from the table rounded to
+    it, and the cotangent is rounded before the float32 sum into h's
+    gradient."""
+    if compute_dtype is None:
+        return segment.gather(h, index)
+    rows = segment.gather(_Round.apply(h, compute_dtype, True, False), index)
+    return _Round.apply(rows, compute_dtype, False, True)
 
 
 def build_pair_adjacency(weights: torch.Tensor, layout: MXULayout,
@@ -172,10 +263,15 @@ def build_pair_adjacency(weights: torch.Tensor, layout: MXULayout,
 
 
 def block_scatter_sum(data: torch.Tensor, local: torch.Tensor,
-                      chunk_block: torch.Tensor, n_blocks: int) -> torch.Tensor:
+                      chunk_block: torch.Tensor, n_blocks: int,
+                      compute_dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
     """out[chunk_block[c]*TILE + local[c,e]] += data[c*TILE+e]; rows whose
     local index is >= TILE (pad sentinel) are dropped.  Returns
-    [n_blocks*TILE, ...]."""
+    [n_blocks*TILE, ...].  With compute_dtype the data is rounded to it
+    before the float32 sum, and so is the gradient that flows back."""
+    if compute_dtype is not None:
+        data = _Round.apply(data, compute_dtype, True, True)
     valid = local < TILE
     idx = torch.where(valid,
                       chunk_block.repeat_interleave(TILE) * TILE + local, 0)
@@ -183,19 +279,21 @@ def block_scatter_sum(data: torch.Tensor, local: torch.Tensor,
 
 
 def weighted_segment_sums(msg: torch.Tensor, weights: torch.Tensor,
-                          layout: MXULayout, n_pad: int, n_full: int):
+                          layout: MXULayout, n_pad: int, n_full: int,
+                          compute_dtype: Optional[torch.dtype] = None):
     """Every weighted edge->dst reduction of a layer in one scatter.
 
     msg: [E, F]; weights: [n_w, E], pad edges already zero-weighted.  The
     first n_full weight rows get full feature sums, every row its weight
-    total.  Returns (sums [n_full, n_pad, F], totals
-    [n_w, n_pad])."""
+    total.  With compute_dtype the scatter rounds its columns (totals
+    included) as block_scatter_sum does.  Returns (sums [n_full, n_pad, F],
+    totals [n_w, n_pad])."""
     f = msg.shape[1]
     cols = [msg * weights[i][:, None] for i in range(n_full)]
     cols.append(weights.T)                              # the totals columns
     out = block_scatter_sum(torch.cat(cols, dim=1), layout.local_dst,
-                            layout.edge_chunk_dst,
-                            layout.n_node_blocks)[:n_pad]
+                            layout.edge_chunk_dst, layout.n_node_blocks,
+                            compute_dtype)[:n_pad]
     sums = out[:, :n_full * f].reshape(n_pad, n_full, f).transpose(0, 1)
     return sums, out[:, n_full * f:].T
 

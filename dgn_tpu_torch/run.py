@@ -10,19 +10,37 @@ with val/test eval, min-lr and max_time stops -> final report (MAE for
 ZINC, accuracy for SBM and superpixels, ROC-AUC for HIV, AP for PCBA).  A
 batch above 1024 graphs runs as micro-batches (`resolve_micro_batches`),
 as the PCBA config's 2048 does.  `--dataset COLLAB` takes `run_collab`:
-one graph packed flat once, LinkPredTrainer, Hits@K.
+one graph packed flat once, LinkPredTrainer, Hits@K (without the recipe
+flags below, as in dgn_tpu).
+
+The training recipe of dgn_tpu/run.py:224-347:
+  * `run_one` trains one seed and writes `out_dir/metrics.jsonl` (one
+    "epoch" record per epoch, observe.MetricStream);
+  * `--checkpoint DIR` snapshots the trainer after every epoch
+    (train/checkpoint.py), and with `--resume` the run restores the newest
+    snapshot there and continues after its epoch;
+  * `--seeds 41,42,...` (`run_seeds`) runs `run_one` once per seed, each in
+    `out_dir/seed<s>` and `DIR/seed<s>`, and prints the reference's table
+    row: `TEST <METRIC>: mean ± std (n/N seeds)` (np.std) and a
+    `[dgn_tpu_torch] SEEDS {...}` line.
+`--compute_dtype bfloat16` runs the block layout's edge stage on bfloat16
+operands with float32 accumulation, as dgn_tpu does (models/dgn_net.py).
 
 The model runs on the GPU (`--device cuda`, the default) unless the caller
 asks for the CPU (`--device cpu`); without a GPU and without that request
 the run stops with an error instead of running on the CPU.  At start the run
 turns TF32 off for matmuls and convolutions
 (torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 =
-False): the reference is float32, and so is this port.
+False) and reduced-precision reductions off for bfloat16 matmuls
+(torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction =
+False): the reference accumulates in float32, and so does this port.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
+import os
 import time
 from typing import Optional
 
@@ -65,9 +83,7 @@ def check_ported(cfg) -> None:
     d = cfg.data
     if d.n_buckets > 1:
         raise NotImplementedError("n_buckets > 1 is not ported yet")
-    if cfg.net_params.compute_dtype is not None:
-        raise NotImplementedError("compute_dtype (bfloat16) is not ported yet;"
-                                  " the port runs float32")
+    cfg.net_params.torch_compute_dtype()     # float32 or bfloat16 only
 
 
 def pos_enc_width(np_cfg, graph) -> Optional[int]:
@@ -203,6 +219,10 @@ def run_collab(cfg, device):
     return report
 
 
+METRICS = {"zinc": "mae", "sbm": "acc", "superpixels": "acc",
+           "hiv": "rocauc", "pcba": "ap"}
+
+
 def run(argv=None):
     from .config import config_from_args
 
@@ -210,23 +230,82 @@ def run(argv=None):
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     layout = "flat" if cfg.task == "collab" else resolve_layout(
         cfg.data.layout)
     print(f"[dgn_tpu_torch] dataset={cfg.dataset} task={cfg.task} "
-          f"device={device} layout={layout}")
+          f"device={device} layout={layout} "
+          f"compute_dtype={cfg.net_params.compute_dtype or 'float32'}")
     if cfg.task == "collab":
         return run_collab(cfg, device)
+    if args.seeds:
+        return run_seeds(cfg, args, [int(x) for x in args.seeds.split(",")],
+                         device)
+    return run_one(cfg, args, device)
+
+
+def run_seeds(cfg, args, seeds, device):
+    """The multi-seed protocol (dgn_tpu/run.py:244-286): run_one per seed,
+    each with its own out_dir and checkpoint directory (a shared one would
+    make --resume restore one seed's weights into the next seed's run),
+    then the mean and std over the seeds that reached a best validation
+    epoch, for every metric their test reports carry."""
+    reports = []
+    for s in seeds:
+        c = dataclasses.replace(
+            cfg, params=dataclasses.replace(cfg.params, seed=s),
+            out_dir=os.path.join(cfg.out_dir, f"seed{s}"))
+        a = argparse.Namespace(**vars(args))
+        if args.checkpoint:
+            a.checkpoint = os.path.join(args.checkpoint, f"seed{s}")
+        print(f"[dgn_tpu_torch] ==== seed {s} ====")
+        reports.append(run_one(c, a, device))
+    done = [r["test_at_best_val"] for r in reports if r["test_at_best_val"]]
+    keys = set().union(*map(set, done)) if done else set()
+    agg = {}
+    for k in ("mae", "acc", "rocauc", "ap"):
+        if k not in keys:
+            continue
+        vals = [t[k] for t in done if k in t]
+        agg[k] = {"mean": float(np.mean(vals)), "std": float(np.std(vals))}
+        print(f"[dgn_tpu_torch] TEST {k.upper()}: {np.mean(vals):.4f} "
+              f"± {np.std(vals):.4f} ({len(vals)}/{len(seeds)} seeds)")
+    out = {"dataset": cfg.dataset, "device": str(device), "seeds": seeds,
+           "test_at_best_val": agg,
+           "per_seed": [r["test_at_best_val"] for r in reports]}
+    print("[dgn_tpu_torch] SEEDS " + json.dumps(out, default=float))
+    return out
+
+
+def run_one(cfg, args, device):
+    """One seed: prepare, restore a snapshot when --resume finds one in
+    --checkpoint, fit with a metrics.jsonl stream in out_dir (and a
+    snapshot per epoch), then the final train/val/test evaluation."""
+    from .observe import MetricStream
+    from .train.checkpoint import Checkpointer
+
     t0 = time.time()
     ds, model, loss_fn, trainer, loaders = prepare(cfg, device)
     print(f"[dgn_tpu_torch] data ready in {time.time() - t0:.1f}s "
           f"(train/val/test = {len(ds.train)}/{len(ds.val)}/{len(ds.test)})")
     n_param = sum(p.numel() for p in model.parameters())
     print(f"[dgn_tpu_torch] MODEL/Total parameters: {n_param}")
-    result = trainer.fit(loaders["train"], loaders["val"], loaders["test"])
+    start_epoch, checkpointer = 0, None
+    if args.checkpoint:
+        checkpointer = Checkpointer(args.checkpoint)
+        if args.resume and checkpointer.latest_epoch() is not None:
+            start_epoch = checkpointer.restore(trainer)
+            print(f"[dgn_tpu_torch] resumed from epoch {start_epoch - 1}")
+    stream = MetricStream(os.path.join(cfg.out_dir, "metrics.jsonl"))
+    try:
+        result = trainer.fit(loaders["train"], loaders["val"],
+                             loaders["test"], checkpointer=checkpointer,
+                             start_epoch=start_epoch, stream=stream)
+    finally:
+        stream.close()
     final = {split: trainer.evaluate(loaders[split])
              for split in ("train", "val", "test")}
-    metric = {"zinc": "mae", "sbm": "acc", "superpixels": "acc",
-              "hiv": "rocauc", "pcba": "ap"}[cfg.task]
+    metric = METRICS[cfg.task]
     print(f"[dgn_tpu_torch] final {metric}: " + ", ".join(
         f"{split} {final[split][metric]:.4f}" for split in final))
     report = {

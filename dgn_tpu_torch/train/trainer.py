@@ -30,7 +30,15 @@ Micro-batching: a loader batch that arrives as a list of K micro-batches
 optimizer step (`train_step`); see there for where it departs from
 dgn_tpu's step.
 
-Not ported yet: checkpointing.
+Each train epoch counts its real edges, nodes and graphs from the loader's
+CPU batches (observe.Throughput) and leaves edges/s and the edge padding
+efficiency (and the loader's pack escapes of the epoch, when any) in
+`_last_throughput`.  `fit` can snapshot the trainer after every epoch
+(train/checkpoint.py), start at a later epoch after a restore, and write
+one "epoch" record per epoch to an observe.MetricStream, with dgn_tpu's
+keys (dgn_tpu/train/trainer.py:282-336).  A KeyboardInterrupt ends the
+epoch loop and `fit` returns what it has, so the caller's final evaluation
+still runs, as in dgn_tpu.
 """
 from __future__ import annotations
 
@@ -233,7 +241,10 @@ class Trainer:
 
     # ------------------------------------------------------------- epochs
     def train_epoch(self, loader) -> Dict[str, float]:
+        from ..observe import Throughput
         acc = _MetricAccumulator(self.task)
+        tp = Throughput()
+        escapes0 = getattr(loader, "n_escapes", 0)
         for gb in loader:
             loss, scores = self.train_step(gb)
             if isinstance(gb, (list, tuple)):
@@ -241,8 +252,19 @@ class Trainer:
                 for k, (g, s) in enumerate(zip(gb, scores)):
                     acc.add(g, s.cpu().numpy(), float(loss) if k == 0
                             else None)
+                    tp.add_batch(g)
             else:
                 acc.add(gb, scores.cpu().numpy(), float(loss))
+                tp.add_batch(gb)
+        r = tp.result()
+        self._last_throughput = {
+            "edges_per_s": round(r["edges_per_s"], 1),
+            "edge_padding_efficiency": round(r["edge_padding_efficiency"], 4),
+        }
+        # repacks of THIS epoch, not the loader's lifetime count
+        escapes = getattr(loader, "n_escapes", 0) - escapes0
+        if escapes:
+            self._last_throughput["pack_escapes"] = escapes
         return acc.result()
 
     def evaluate(self, loader) -> Dict[str, float]:
@@ -259,7 +281,13 @@ class Trainer:
         return acc.result()
 
     def fit(self, train_loader, val_loader=None, test_loader=None,
-            log: Callable[[str], None] = print) -> Dict[str, Any]:
+            log: Callable[[str], None] = print, checkpointer=None,
+            start_epoch: int = 0, stream=None) -> Dict[str, Any]:
+        """Epochs start_epoch .. params.epochs - 1.  checkpointer: a
+        train/checkpoint.Checkpointer that snapshots the trainer after each
+        epoch; stream: an observe.MetricStream that receives one "epoch"
+        record per epoch (epoch, lr, train/val/test metrics, seconds,
+        edges_per_s, edge_padding_efficiency)."""
         p = self.p
         t0 = time.time()
         history = []
@@ -267,32 +295,43 @@ class Trainer:
         best_epoch = -1
         test_at_best = None
         maximize = self.task in ("hiv", "pcba")
-        for epoch in range(p.epochs):
-            te0 = time.time()
-            train_m = self.train_epoch(train_loader)
-            val_m = self.evaluate(val_loader) if val_loader else None
-            test_m = self.evaluate(test_loader) if test_loader else None
-            history.append(dict(epoch=epoch, lr=self.scheduler.lr,
-                                time=time.time() - te0, train=train_m,
-                                val=val_m, test=test_m))
-            if val_m is not None:
-                obj = val_m["objective"]
-                # the plateau scheduler steps on the minimised objective
-                self.scheduler.step(-obj if maximize else obj)
-                if best_val is None or (obj > best_val if maximize
-                                        else obj < best_val):
-                    best_val, best_epoch = obj, epoch
-                    test_at_best = test_m
-            if epoch % p.print_epoch_interval == 0:
-                log(f"epoch {epoch}: lr={self.scheduler.lr:.2e} "
-                    f"train={train_m} val={val_m} test={test_m}")
-            if self.scheduler.lr <= p.min_lr * (1 + 1e-9):
-                log("lr reached min_lr — stopping (reference "
-                    "main_molecules.py:130-132)")
-                break
-            if (time.time() - t0) / 3600.0 > p.max_time:
-                log("max_time reached — stopping")
-                break
+        try:
+            for epoch in range(start_epoch, p.epochs):
+                te0 = time.time()
+                train_m = self.train_epoch(train_loader)
+                val_m = self.evaluate(val_loader) if val_loader else None
+                test_m = self.evaluate(test_loader) if test_loader else None
+                row = dict(epoch=epoch, lr=self.scheduler.lr,
+                           time=time.time() - te0, train=train_m, val=val_m,
+                           test=test_m)
+                history.append(row)
+                if stream is not None:
+                    stream.log("epoch", **{k: v for k, v in row.items()
+                                           if k != "time"},
+                               seconds=row["time"],
+                               **getattr(self, "_last_throughput", {}))
+                if val_m is not None:
+                    obj = val_m["objective"]
+                    # the plateau scheduler steps on the minimised objective
+                    self.scheduler.step(-obj if maximize else obj)
+                    if best_val is None or (obj > best_val if maximize
+                                            else obj < best_val):
+                        best_val, best_epoch = obj, epoch
+                        test_at_best = test_m
+                if epoch % p.print_epoch_interval == 0:
+                    log(f"epoch {epoch}: lr={self.scheduler.lr:.2e} "
+                        f"train={train_m} val={val_m} test={test_m}")
+                if checkpointer is not None:
+                    checkpointer.save(epoch, self)
+                if self.scheduler.lr <= p.min_lr * (1 + 1e-9):
+                    log("lr reached min_lr — stopping (reference "
+                        "main_molecules.py:130-132)")
+                    break
+                if (time.time() - t0) / 3600.0 > p.max_time:
+                    log("max_time reached — stopping")
+                    break
+        except KeyboardInterrupt:
+            log("interrupted — falling through to final eval")
         return dict(history=history, best_epoch=best_epoch,
                     best_val=best_val, test_at_best=test_at_best)
 

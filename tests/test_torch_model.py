@@ -282,7 +282,7 @@ def test_readout_none_returns_node_embeddings(setup):
 
 
 @pytest.mark.parametrize("field,value", [("bn_axis", "dp"),
-                                         ("compute_dtype", "bfloat16")])
+                                         ("compute_dtype", "float16")])
 def test_unported_config_raises(field, value):
     cfg = dataclasses.replace(TConfig(hidden_dim=H, out_dim=H, L=L),
                               **{field: value})

@@ -84,7 +84,7 @@ def test_run_without_gpu_refuses_cpu_fallback():
 
 
 @pytest.mark.parametrize("flags", [["--n_buckets", "2"],
-                                   ["--compute_dtype", "bfloat16"]])
+                                   ["--compute_dtype", "float16"]])
 def test_run_rejects_unported_options(flags):
     with pytest.raises(NotImplementedError):
         trun.run(SMALL + ["--device", "cpu"] + flags)
