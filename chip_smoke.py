@@ -15,7 +15,11 @@ and no device line.  Phases, each of which fails the script:
    PyTorch version on the card and against an f64 oracle, and timed beside
    the plain version, one equivalent PyTorch call and the card's bound:
    build_pair_adjacency at the ZINC and the CIFAR10 batch, in float32 and
-   in its bf16 output mode (plus a multi-block case), the
+   in its bf16 output mode (plus a multi-block case), each timing line
+   with the batch's covered, uncovered and all-pad-chunk counts, the
+   launch's grid and shared bytes, the write floor (zero_() of a
+   tensor of the output's shape and dtype, timed the same way) and the
+   write path (the kernel given an empty chunk range for every pair), the
    segment_extremes forward/backward
    pair at the HIV batch and at one PCBA micro-batch (plus tie, star,
    multi-block and dense-block cases) with its grids;
@@ -195,14 +199,17 @@ def timed(torch, fn, iters: int = 20, warmup: int = 3):
     end.record()
     torch.cuda.synchronize()
     call_ms = start.elapsed_time(end) / iters
-    events = profiled(torch, lambda: [fn(i) for i in range(iters)])
+    # every call launches at least one device activity: a window with fewer
+    # lost some of them, and would read low
+    events = profiled(torch, lambda: [fn(i) for i in range(iters)],
+                      min_events=iters)
     return sum(e.device_time for e in events) / 1e3 / iters, call_ms
 
 
-def profiled(torch, run):
+def profiled(torch, run, min_events: int = 1):
     """The device events of run() under torch.profiler.  A window whose
-    trace comes back without any device activity is run again, twice at
-    most, before the script fails."""
+    trace comes back with fewer than min_events device activities is run
+    again, twice at most, before the script fails."""
     from torch.profiler import ProfilerActivity, profile
     for window in range(3):
         with profile(activities=[ProfilerActivity.CPU,
@@ -210,11 +217,12 @@ def profiled(torch, run):
             run()
             torch.cuda.synchronize()
         events = device_events(torch, prof)
-        if events:
+        if len(events) >= min_events:
             return events
-        print(f"torch.profiler recorded no device activity in window "
-              f"{window + 1} of 3")
-    fail("torch.profiler recorded no device activity")
+        print(f"torch.profiler recorded {len(events)} device activities in "
+              f"window {window + 1} of 3, fewer than {min_events}")
+    fail(f"torch.profiler recorded fewer than {min_events} device "
+         "activities")
 
 
 def multiblock_graphs(np, GraphData, n_graphs: int = 4, seed: int = 11):
@@ -345,8 +353,12 @@ def family_weights(torch, gb, families):
 
 def time_adjacency(torch, w, layout, shape: str, out_dtype) -> dict:
     """build_pair_adjacency at one shape and output dtype: device ms of the
-    kernel, the plain version and the library call, and the card's
-    bound."""
+    kernel, the plain version and the library call, the card's bound, the
+    write floor: the device ms of zeroing a fresh tensor of the output's
+    shape and dtype, timed the same way, which is what this card takes to
+    write the same bytes in the same loop, and the write path: the kernel
+    given an empty chunk range for every pair, so that it only writes
+    zeros (the kernel's time less its loads and scatter)."""
     from dgn_tpu_torch.ops import adjacency
     dev = w.device
     k, e_pad = w.shape
@@ -372,23 +384,46 @@ def time_adjacency(torch, w, layout, shape: str, out_dtype) -> dict:
         fail("the library call does not compute build_pair_adjacency")
     library_ms, library_call_ms = timed(
         torch, lambda i: out.index_put_(idx, w_out, accumulate=True))
+    floor_ms, _ = timed(torch, lambda i: torch.empty(
+        (p, k, 128, 128), device=dev, dtype=out_dtype).zero_())
+    empty = dataclasses.replace(
+        layout, pair_chunk_start=torch.zeros_like(layout.pair_chunk_start))
+    if adjacency.build_pair_adjacency(w, empty, out_dtype).any():
+        fail(f"build_pair_adjacency's write path is not zero ({shape})")
+    write_path_ms, _ = timed(
+        torch, lambda i: adjacency.build_pair_adjacency(w, empty, out_dtype))
     n_chunks = e_pad // 128
+    real_chunks = int(layout.pair_chunk_start[-1])
     out_bytes = torch.finfo(out_dtype).bits // 8
-    bytes_moved = (w.numel() * 4 + 2 * e_pad * 4 + 2 * n_chunks * 4
+    # inputs the kernel must read: the weights and local_src/dst of the
+    # chunks that hold a real edge (the all-pad ones add nothing and are
+    # never read) and its walk arrays (their entries of
+    # pair_real_chunk_order, pair_chunk_start [P + 1])
+    bytes_moved = (real_chunks * 128 * (k * 4 + 2 * 4)
+                   + (real_chunks + p + 1) * 4
                    + p * k * 128 * 128 * out_bytes)
     adds = int((w != 0).sum().item())
     bound_ms, bound_by = bound(bytes_moved, adds)
     covered = layout.pair_covered
     off = int(((layout.pair_src != layout.pair_dst) & covered).sum())
+    launch = adjacency.launch_shape(k, p)
     print(f"kernel build_pair_adjacency timing ({shape}, {out_dtype}): "
           f"K={k} E={e_pad} "
           f"C={n_chunks} P={p} ({int(covered.sum())} covered, {off} of them "
-          f"off-diagonal), {bytes_moved} bytes, {adds} adds; device ms "
+          f"off-diagonal, {p - int(covered.sum())} uncovered), "
+          f"{n_chunks - real_chunks} all-pad chunks; grid {launch['grid']} "
+          f"x {launch['threads']} threads, {launch['smem_bytes']} shared "
+          f"bytes per CTA; {bytes_moved} bytes, {adds} adds; device ms "
           f"kernel {ms:.5f}, plain {plain_ms:.5f}, library {library_ms:.5f}, "
-          f"bound {bound_ms:.5f}; per call incl. host: kernel {call_ms:.5f}, "
-          f"plain {plain_call_ms:.5f}, library {library_call_ms:.5f}")
+          f"bound {bound_ms:.5f}, write floor {floor_ms:.5f}, write path "
+          f"{write_path_ms:.5f} (kernel at "
+          f"{bound_ms / ms:.1%} of its bound, floor at "
+          f"{bound_ms / floor_ms:.1%}); per call incl. host: kernel "
+          f"{call_ms:.5f}, plain {plain_call_ms:.5f}, library "
+          f"{library_call_ms:.5f}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms,
+            "write_floor_ms": floor_ms, "write_path_ms": write_path_ms}
 
 
 def adjacency_phase(torch, np):

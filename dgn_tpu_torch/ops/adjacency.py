@@ -52,17 +52,28 @@ def _check_index(name: str, t: torch.Tensor, n: int, device) -> None:
 
 @functools.cache
 def _kernel():
-    """(launch, error string) C functions of csrc/adjacency.cu, built on
-    first use."""
+    """(launch, launch shape, error string) C functions of
+    csrc/adjacency.cu, built on first use."""
     from . import cuda_build
     lib = cuda_build.load("adjacency")
     fn = lib.dgn_build_pair_adjacency
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    shape = lib.dgn_pair_adjacency_launch_shape
+    shape.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    shape.restype = None
     errstr = lib.dgn_cuda_error_string
     errstr.argtypes = [ctypes.c_int]
     errstr.restype = ctypes.c_char_p
-    return fn, errstr
+    return fn, shape, errstr
+
+
+def launch_shape(n_fam: int, n_pairs: int) -> dict:
+    """The kernel's grid, threads and shared bytes per CTA at these sizes,
+    as csrc/adjacency.cu launches it (builds the kernel on first use)."""
+    out = (ctypes.c_int * 3)()
+    _kernel()[1](n_fam, n_pairs, ctypes.addressof(out))
+    return {"grid": (out[0],), "threads": out[1], "smem_bytes": out[2]}
 
 
 def _launch(weights: torch.Tensor, layout, out_dtype) -> torch.Tensor:
@@ -78,26 +89,32 @@ def _launch(weights: torch.Tensor, layout, out_dtype) -> torch.Tensor:
     if out_dtype not in _OUT_DTYPES:
         raise ValueError(f"build_pair_adjacency: out_dtype {out_dtype} is not "
                          "float32 or bfloat16")
+    n_pairs = layout.n_pairs
+    if n_pairs <= 0:
+        raise ValueError("build_pair_adjacency: layout has no pairs")
     n_chunks = e_pad // TILE
     dev = weights.device
     _check_index("local_src", layout.local_src, e_pad, dev)
     _check_index("local_dst", layout.local_dst, e_pad, dev)
-    _check_index("pair_chunk_order", layout.pair_chunk_order, n_chunks, dev)
-    _check_index("pair_sorted_ids", layout.pair_sorted_ids, n_chunks, dev)
-    n_pairs = layout.n_pairs
-    if n_pairs <= 0:
-        raise ValueError("build_pair_adjacency: layout has no pairs")
+    _check_index("pair_real_chunk_order", layout.pair_real_chunk_order,
+                 n_chunks, dev)
+    _check_index("pair_chunk_start", layout.pair_chunk_start, n_pairs + 1,
+                 dev)
+    for name, t in (("weights", weights), ("local_src", layout.local_src),
+                    ("local_dst", layout.local_dst)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"build_pair_adjacency: {name} must start on a "
+                             "16-byte boundary (the kernel loads 16 bytes)")
 
-    fn, errstr = _kernel()
+    fn, _, errstr = _kernel()
     out = torch.empty((n_pairs, k, TILE, TILE), dtype=out_dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(weights.data_ptr(), layout.local_src.data_ptr(),
                  layout.local_dst.data_ptr(),
-                 layout.pair_chunk_order.data_ptr(),
-                 layout.pair_sorted_ids.data_ptr(), out.data_ptr(),
-                 k, e_pad, n_chunks, n_pairs,
-                 int(out_dtype == torch.bfloat16), stream)
+                 layout.pair_real_chunk_order.data_ptr(),
+                 layout.pair_chunk_start.data_ptr(), out.data_ptr(),
+                 k, e_pad, n_pairs, int(out_dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError("build_pair_adjacency kernel launch failed: "
                            f"{errstr(err).decode()} (cudaError {err})")
@@ -111,8 +128,12 @@ def build_pair_adjacency(weights: torch.Tensor, layout,
     """[K, E] edge weights -> [P, K, TILE, TILE] adjacency blocks.
 
     CUDA tensors launch the kernel (f32 weights; f32 or bf16 output) or
-    raise; CPU tensors take build_pair_adjacency_plain.  Each kernel launch
-    adds one to `build_pair_adjacency.launches`."""
+    raise; CPU tensors take build_pair_adjacency_plain.  Pad edges must
+    weigh 0: the kernel walks only each pair's chunks that hold a real edge
+    (layout.pair_real_chunk_order from layout.pair_chunk_start), which
+    gives the plain version's result exactly when an all-pad chunk adds
+    nothing.  Each kernel launch adds one to
+    `build_pair_adjacency.launches`."""
     if weights.device.type == "cuda":
         dt = out_dtype if out_dtype is not None else weights.dtype
         return _launch(weights, layout, dt)

@@ -69,6 +69,12 @@ class MXULayout:
       pair_chunk_order: [C] int32 chunks sorted by pair id (stable).
       pair_sorted_ids: [C] int32 chunk_pair[pair_chunk_order], non-decreasing.
       pair_covered: [P] bool, False for pad pairs.
+    The adjacency kernel's walk (port only; dgn_tpu's layout has neither):
+      pair_real_chunk_order: [C] int32 the chunks that hold a real edge, in
+        pair_chunk_order's order, then the all-pad chunks.
+      pair_chunk_start: [P + 1] int32 row pointer into it: pair p's chunks
+        with a real edge are [start[p], start[p+1]); start[P] counts them.
+        Pad pairs and a pair that owns only all-pad chunks get empty ranges.
     """
     local_src: torch.Tensor
     local_dst: torch.Tensor
@@ -85,6 +91,8 @@ class MXULayout:
     pair_chunk_order: torch.Tensor
     pair_sorted_ids: torch.Tensor
     pair_covered: torch.Tensor
+    pair_real_chunk_order: torch.Tensor
+    pair_chunk_start: torch.Tensor
     # static metadata of the reference's max/min lowering, at the reference
     # defaults (always correct); nothing in this package reads it
     ext_passes: int = 7
@@ -157,6 +165,13 @@ def build_mxu_layout(src: np.ndarray, dst: np.ndarray, edge_mask: np.ndarray,
     pair_covered = np.zeros(n_pairs_pad, bool)
     pair_covered[:n_real_pairs] = True
     chunk_pair = chunk_pair.astype(np.int32)
+    # all-pad chunks carry weight 0 only, so the adjacency kernel skips them
+    real = em.any(axis=1)[pair_chunk_order]
+    pair_real_chunk_order = np.concatenate(
+        [pair_chunk_order[real], pair_chunk_order[~real]])
+    pair_chunk_start = np.zeros(n_pairs_pad + 1, np.int32)
+    np.cumsum(np.bincount(chunk_pair[pair_chunk_order[real]],
+                          minlength=n_pairs_pad), out=pair_chunk_start[1:])
 
     t = torch.from_numpy
     return MXULayout(
@@ -168,7 +183,9 @@ def build_mxu_layout(src: np.ndarray, dst: np.ndarray, edge_mask: np.ndarray,
         pair_dst=t(pair_dst), n_pairs=n_pairs_pad,
         pair_chunk_order=t(pair_chunk_order),
         pair_sorted_ids=t(np.ascontiguousarray(chunk_pair[pair_chunk_order])),
-        pair_covered=t(pair_covered))
+        pair_covered=t(pair_covered),
+        pair_real_chunk_order=t(pair_real_chunk_order),
+        pair_chunk_start=t(pair_chunk_start))
 
 
 def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

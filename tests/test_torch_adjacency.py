@@ -25,6 +25,7 @@ import torch
 
 from dgn_tpu_torch import graph as tgraph
 from dgn_tpu_torch.data import synthetic as tsyn
+from dgn_tpu_torch.data.loader import BatchLoader
 from dgn_tpu_torch.ops import adjacency as tadj
 from dgn_tpu_torch.ops import mxu as tmxu
 
@@ -136,6 +137,120 @@ def test_cpu_path_counts_no_launch():
     assert tadj.build_pair_adjacency.launches == before
 
 
+# ------------------------------------- CPU: the kernel's walk of the layout
+
+def _packed(graphs, n_pairs_pad=None):
+    """One block-layout batch at the worst-case pads of its graphs, in the
+    loader's order (descending node count), as chip_smoke.py packs its
+    kernel batches: the pad edges fill all-pad chunks of one pair."""
+    graphs = sorted(graphs, key=lambda g: -g.num_nodes)
+    n_pad, e_pad, g_pad = tgraph.mxu_bucket_sizes(graphs, len(graphs))
+    if n_pairs_pad is None:
+        n_pairs_pad = tgraph.mxu_pair_pad(graphs, len(graphs), n_pad, e_pad)
+    return tgraph.pack_graphs(graphs, n_pad=n_pad, e_pad=e_pad, g_pad=g_pad,
+                              mxu_layout=True, n_pairs_pad=n_pairs_pad)
+
+
+def _loader_batch(graphs, batch_size):
+    """The first batch of the port's block-layout loader."""
+    return next(iter(BatchLoader(graphs, batch_size=batch_size,
+                                 shuffle=False, seed=0, layout="mxu",
+                                 geometry="typical")))
+
+
+# ZINC, a multi-block SBM with real off-diagonal pairs, and a CIFAR10-like
+# batch (superpixel graphs of 140-159 nodes, each spanning two node blocks)
+WALK_CASES = {
+    "zinc": lambda: _packed(tsyn.synthetic_zinc(24, seed=7)),
+    "sbm_multiblock": lambda: _loader_batch(
+        tsyn.synthetic_sbm(8, seed=11, nodes=150), 4),
+    "cifar10_like": lambda: _loader_batch(tsyn.synthetic_superpixels(
+        32, seed=3, nodes=150, coord_eig=True), 16),
+}
+
+
+def _walk(weights, layout):
+    """NumPy model of the kernel: for each (pair, family, 32-row slab),
+    only the pair's range of pair_real_chunk_order, and of its edges those
+    of nonzero weight whose local_src falls in the slab."""
+    k = weights.shape[0]
+    ls = layout.local_src.numpy().reshape(-1, 128)
+    ld = layout.local_dst.numpy().reshape(-1, 128)
+    w = weights.numpy().reshape(k, -1, 128)
+    order = layout.pair_real_chunk_order.numpy()
+    start = layout.pair_chunk_start.numpy()
+    out = np.zeros((layout.n_pairs, k, 128, 128), np.float32)
+    for p in range(layout.n_pairs):
+        for f in range(k):
+            for slab in range(4):
+                for c in order[start[p]:start[p + 1]]:
+                    keep = (w[f, c] != 0) & (ls[c] // 32 == slab)
+                    np.add.at(out[p, f], (ls[c][keep], ld[c][keep]),
+                              w[f, c][keep])
+    return out
+
+
+def _pad_only_pairs(gb):
+    """Covered pairs whose every chunk holds only pad edges."""
+    lay = gb.mxu
+    real = gb.edge_mask.numpy().reshape(-1, 128).any(axis=1)
+    cp = lay.chunk_pair.numpy()
+    has_real = np.zeros(lay.n_pairs, bool)
+    has_real[cp[real]] = True
+    return np.nonzero(lay.pair_covered.numpy() & ~has_real)[0]
+
+
+@pytest.mark.parametrize("case", list(WALK_CASES))
+def test_pair_chunk_ranges(case):
+    gb = WALK_CASES[case]()
+    lay = gb.mxu
+    n_chunks, n_pairs = gb.num_edges_padded // 128, lay.n_pairs
+    real = gb.edge_mask.numpy().reshape(-1, 128).any(axis=1)
+    order = lay.pair_real_chunk_order.numpy()
+    start = lay.pair_chunk_start.numpy()
+    assert order.dtype == start.dtype == np.int32
+    assert order.shape == (n_chunks,) and start.shape == (n_pairs + 1,)
+    assert start[0] == 0 and np.all(np.diff(start) >= 0)
+    assert start[-1] == real.sum()
+    assert sorted(order) == list(range(n_chunks))
+    assert not real[order[start[-1]:]].any()       # then the all-pad chunks
+    pco = lay.pair_chunk_order.numpy()
+    psi = lay.pair_sorted_ids.numpy()
+    for p in range(n_pairs):
+        lo, hi = np.searchsorted(psi, [p, p + 1])
+        want = [c for c in pco[lo:hi] if real[c]]
+        assert list(order[start[p]:start[p + 1]]) == want, p
+    uncovered = np.nonzero(~lay.pair_covered.numpy())[0]
+    pad_only = _pad_only_pairs(gb)
+    assert len(uncovered) and len(pad_only) == 1
+    assert np.all(start[uncovered] == start[uncovered + 1])
+    assert np.all(start[pad_only] == start[pad_only + 1])
+    if case != "zinc":
+        assert _has_off_diagonal(lay), "no real off-diagonal pairs packed"
+
+
+@pytest.mark.parametrize("case", list(WALK_CASES))
+def test_walk_of_ranges_equals_plain(case):
+    """A scatter from the kernel's ranges alone gives the plain version's
+    blocks exactly (simple graphs: one edge per cell)."""
+    gb = WALK_CASES[case]()
+    w = torch.from_numpy(_weights(3, gb, 17))
+    want = tadj.build_pair_adjacency_plain(w, gb.mxu)
+    np.testing.assert_array_equal(_walk(w, gb.mxu), want.numpy())
+
+
+def test_layout_to_carries_walk_arrays():
+    lay = WALK_CASES["zinc"]().mxu
+    moved = lay.to("meta")
+    for name in ("pair_real_chunk_order", "pair_chunk_start"):
+        got, src = getattr(moved, name), getattr(lay, name)
+        assert got.device.type == "meta", name
+        assert got.dtype == src.dtype and got.shape == src.shape, name
+    back = lay.to("cpu")
+    assert torch.equal(back.pair_chunk_start, lay.pair_chunk_start)
+    assert torch.equal(back.pair_real_chunk_order, lay.pair_real_chunk_order)
+
+
 # ------------------------------------------------------------- GPU: kernel
 
 def _multiblock_graphs(n_graphs=4, seed=11):
@@ -201,3 +316,107 @@ def test_cuda_wrapper_rejects_bad_inputs():
         tadj.build_pair_adjacency(w, gb.mxu)              # layout on the CPU
     with pytest.raises(ValueError):
         tadj.build_pair_adjacency(w[:, :-128], layout)    # E mismatch
+
+
+def _multigraph(n_graphs=16, seed=23):
+    """ZINC graphs with every third edge doubled and every fifth tripled:
+    several edges add into one cell."""
+    out = []
+    for g in tsyn.synthetic_zinc(n_graphs, seed=seed):
+        extra = np.concatenate([np.arange(0, g.num_edges, 3),
+                                np.repeat(np.arange(0, g.num_edges, 5), 2)])
+        ef = g.edge_feat
+        out.append(dataclasses.replace(
+            g, src=np.concatenate([g.src, g.src[extra]]),
+            dst=np.concatenate([g.dst, g.dst[extra]]),
+            edge_feat=None if ef is None else np.concatenate([ef, ef[extra]])))
+    return out
+
+
+def _pair_pad_4x():
+    """A ZINC batch whose pair axis is padded to 4x its covered pairs."""
+    graphs = tsyn.synthetic_zinc(24, seed=7)
+    n_covered = int(_packed(graphs).mxu.pair_covered.sum())
+    return _packed(graphs, n_pairs_pad=4 * n_covered)
+
+
+# name -> (batch, K); each runs in f32 and bf16
+LAYOUT_GPU_CASES = {
+    "multigraph_k3": (lambda: _packed(_multigraph()), 3),
+    "pair_pad_4x_k3": (_pair_pad_4x, 3),
+    "zinc_k1": (lambda: _packed(tsyn.synthetic_zinc(128, seed=41)), 1),
+    "zinc_k3": (lambda: _packed(tsyn.synthetic_zinc(128, seed=41)), 3),
+    "zinc_k6": (lambda: _packed(tsyn.synthetic_zinc(128, seed=41)), 6),
+    "cifar10_like_k3": (WALK_CASES["cifar10_like"], 3),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(LAYOUT_GPU_CASES))
+def test_cuda_kernel_layout_cases(case, out_dtype):
+    """The kernel against the f64 oracle and the plain version on the
+    batches whose layouts stress its walk: duplicate edges into one cell
+    (f32 within 1e-6 relative of the oracle and of the plain version: the
+    atomics' order varies), a pair pad of 4x the covered pairs, K = 1, 3
+    and 6, and the pad-only pair of a ZINC batch, whose block must be all
+    zeros.  Outside the multigraph, f32 and bf16 blocks equal the plain
+    version's exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs a GPU")
+    make, k = LAYOUT_GPU_CASES[case]
+    gb = make()
+    lay = gb.mxu
+    covered = int(lay.pair_covered.sum())
+    if case.startswith("pair_pad"):
+        assert lay.n_pairs == 4 * covered
+    pad_only = _pad_only_pairs(gb)
+    if case.startswith("zinc"):
+        assert len(pad_only) == 1
+    w = _weights(k, gb, 41)
+    layout = lay.to("cuda")
+    wd = torch.from_numpy(w).cuda()
+    before = tadj.build_pair_adjacency.launches
+    got = tadj.build_pair_adjacency(wd, layout, out_dtype)
+    torch.cuda.synchronize()
+    assert tadj.build_pair_adjacency.launches == before + 1
+    assert got.dtype == out_dtype and got.is_cuda
+    assert got.shape == (lay.n_pairs, k, 128, 128)
+    got = got.float().cpu().numpy()
+    oracle = _oracle(w, lay)
+    want = tadj.build_pair_adjacency_plain(wd, layout, out_dtype)
+    want = want.float().cpu().numpy()
+    tol = 1e-6 if out_dtype == torch.float32 else 1e-2
+    np.testing.assert_allclose(got.astype(np.float64), oracle, rtol=tol,
+                               atol=tol)
+    if case.startswith("multigraph"):
+        np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    else:
+        # one f32 sum per cell, rounded once: the plain version's bits
+        np.testing.assert_array_equal(got, want)
+    assert not got[~lay.pair_covered.numpy()].any()
+    assert not got[pad_only].any()
+
+
+@pytest.mark.gpu
+def test_cuda_wrapper_checks_walk_arrays():
+    """The wrapper raises on walk arrays of the wrong type, length,
+    device or layout in memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs a GPU")
+    gb = _packed(tsyn.synthetic_zinc(24, seed=7))
+    layout = gb.mxu.to("cuda")
+    w = torch.from_numpy(_weights(3, gb, 3)).cuda()
+    order, start = layout.pair_real_chunk_order, layout.pair_chunk_start
+    bad = {
+        "pair_real_chunk_order": [order.long(), order[:-1], order.cpu(),
+                                  torch.stack([order, order], 1)[:, 0]],
+        "pair_chunk_start": [start.long(), start[:-1], start.cpu(),
+                             torch.stack([start, start], 1)[:, 0]],
+    }
+    for name, tensors in bad.items():
+        for t in tensors:
+            with pytest.raises(ValueError, match=name):
+                tadj.build_pair_adjacency(
+                    w, dataclasses.replace(layout, **{name: t}))
