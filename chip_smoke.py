@@ -73,11 +73,26 @@ and no device line.  Phases, each of which fails the script:
    batches unchanged and finite; the extremes pair on HIV's block batch
    with NaN in every pad edge's lane gives the clean result, and the
    block layout's model output under poison is reported); profile_steps
-   writes a trace of 3 train steps.
+   writes a trace of 3 train steps;
+7. real files: seeded dataset files in the reference's layouts
+   (tests/real_files.py, docs/DATA.md) under out/chip_smoke_real/, trained
+   through the entry point with --data_dir: zinc-real twice, with an empty
+   and then a warm --cache_dir (the warm run must solve no eigenproblem
+   and load eig arrays equal to the cold run's), hiv-real (OGB raw csv.gz,
+   scaffold split, tiny molecules dropped; both kernels), cifar10-real
+   (superpixel pickles: the host k-NN and sym eig), pattern-real (SBM
+   pickles with dense W), zinc-buckets (--n_buckets 4: each bucket's pads,
+   its slot efficiency and step beside zinc-real's, one adjacency launch
+   per packed batch) and collab-real (ogbl-collab raw csv.gz and
+   split/time/*.pt, no launch), each with its launch counts checked; then
+   host packing ms per batch on this host: the flat layout with numpy and
+   with the native packer (runtime/packer.cpp, built with g++ here; its
+   batches must equal numpy's) for ZINC and HIV, and the block layout for
+   ZINC and CIFAR10.
 
 Prints a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`.  Needs no network; starts no process other
-than nvidia-smi and nvcc, and waits for each.
+than nvidia-smi, nvcc and g++, and waits for each.
 """
 from __future__ import annotations
 
@@ -142,6 +157,26 @@ PATHS = (
     TrainPath("zinc-bf16", ZINC, 0, 1024, BF16_FLAGS),
     TrainPath("hiv-bf16", HIV, 4, 1024, BF16_FLAGS),
     TrainPath("cifar10-bf16", CIFAR10, 0, 1024, BF16_FLAGS))
+# The paths on dataset files in the reference's real layouts (docs/DATA.md),
+# written under REAL_DIR by tests/real_files.py from seeds: 1024 train
+# graphs each (HIV about 1024 after its tiny molecules are dropped, CIFAR10
+# 1024 after the last 113 of 1137 become val), 102 val and test; the ZINC
+# paths keep their eigenvectors in REAL_CACHE
+REAL_DIR = REPO / "out" / "chip_smoke_real"
+REAL_DATA, REAL_CACHE = REAL_DIR / "data", REAL_DIR / "eig_cache"
+DATA_FLAGS = ("--data_dir", str(REAL_DATA))
+ZINC_REAL_FLAGS = DATA_FLAGS + ("--cache_dir", str(REAL_CACHE))
+REAL_PATHS = (
+    TrainPath("zinc-real", ZINC, 0, 1024, ZINC_REAL_FLAGS),
+    TrainPath("hiv-real", HIV, 4, 1024, DATA_FLAGS),
+    TrainPath("cifar10-real", CIFAR10, 0, 1024, DATA_FLAGS),
+    TrainPath("pattern-real", "SBMs_node_clustering_DGN_PATTERN.json", 0,
+              1024, DATA_FLAGS),
+    TrainPath("zinc-buckets", ZINC, 0, 1024,
+              ZINC_REAL_FLAGS + ("--n_buckets", "4")))
+REAL_SIZES = {"train": 1024, "val": 102, "test": 102}
+OGB_GRAPHS = 1422        # 80 % train, every tenth molecule dropped as tiny
+PACK_BATCHES = 24        # host pack timings per dataset and packer
 # COLLAB's dense eigensolve grows as n^3: 4,096 nodes take about 10 s of
 # host time, 16,384 did not finish in 90 s
 COLLAB_NODES = 4096
@@ -264,6 +299,7 @@ def bound(bytes_moved: int, ops: int):
 
 _PREPARED = {}
 _LOADS = []          # one entry per load_dataset call since share_datasets
+_DATASETS = {}       # share_datasets' cache: (name, DataParams) -> dataset
 
 
 def share_datasets() -> None:
@@ -276,7 +312,8 @@ def share_datasets() -> None:
     repeated data generation; drive_path fails if a run loads its data
     without this cache."""
     from dgn_tpu_torch.data import datasets
-    load, load_collab, cache = datasets.load_dataset, datasets.load_collab, {}
+    load, load_collab, cache = (datasets.load_dataset, datasets.load_collab,
+                                _DATASETS)
 
     def load_once(name, dp):
         key = (name, dataclasses.astuple(dp))
@@ -310,10 +347,11 @@ def adjacency_builds(net, flat: bool) -> int:
 
 
 def path_argv(path: TrainPath) -> list:
-    """The entry point's arguments for the path, without epochs and
-    device."""
-    return ["--config", str(CONFIGS / path.config), "--synthetic_size",
-            str(path.size), *path.flags]
+    """The entry point's arguments for the path, without epochs and device;
+    a path on dataset files (--data_dir) has no synthetic size."""
+    size = () if "--data_dir" in path.flags else ("--synthetic_size",
+                                                   str(path.size))
+    return ["--config", str(CONFIGS / path.config), *size, *path.flags]
 
 
 def prepared(key: str):
@@ -324,8 +362,8 @@ def prepared(key: str):
     if key not in _PREPARED:
         from dgn_tpu_torch import run
         from dgn_tpu_torch.config import config_from_args
-        cfg, _ = config_from_args(path_argv(next(p for p in PATHS
-                                                 if p.key == key)))
+        cfg, _ = config_from_args(path_argv(next(
+            p for p in PATHS + REAL_PATHS if p.key == key)))
         _PREPARED[key] = run.prepare(cfg, DEVICE) + (cfg,)
     return _PREPARED[key]
 
@@ -655,11 +693,16 @@ def extremes_phase(torch, np):
         n = gb.num_nodes_padded
         w1 = torch.from_numpy(rng.normal(size=(n, vals.shape[1])).astype(
             np.float32)).to(dev)
+        # the min's cotangent, made once for both sides: on a CPU-only
+        # torch the first sin of a process can come back 1.5e-4 off on one
+        # thread's share of the entries, which failed CPU rehearsals of this
+        # check though both sides ran the same plain version
+        w2 = torch.sin(w1)
 
-        def run(fn, dev_=dev, layout_=layout, mask_=mask, w=w1):
+        def run(fn, dev_=dev, layout_=layout, mask_=mask, w=w1, w_min=w2):
             x = torch.tensor(vals, device=dev_, requires_grad=True)
             mx, mn = fn(x, layout_, mask_, n)
-            ((w * mx).sum() + (torch.sin(w) * mn).sum()).backward()
+            ((w * mx).sum() + (w_min * mn).sum()).backward()
             return mx.detach(), mn.detach(), x.grad
 
         mx, mn, grad = run(extremes.segment_extremes)
@@ -710,7 +753,10 @@ def launch_counters():
 
 def packed_units(loader) -> int:
     """GraphBatches one pass of the loader yields: one per batch, or one per
-    non-empty micro-batch of each batch."""
+    non-empty micro-batch of each batch; a BucketedLoader (no
+    micro-batches) one per batch of each bucket."""
+    if not hasattr(loader, "micro_batches"):
+        return len(loader)
     n, bs, k = len(loader.graphs), loader.batch_size, loader.micro_batches
     return sum(min(k, bs, n - i) for i in range(0, n, bs))
 
@@ -727,7 +773,6 @@ def drive_path(torch, path: TrainPath):
     such layer and tower per train step.  The counts of packed batches come
     from the path's loaders as run.prepare builds them (`prepared`).
     Returns (report, launches, peak device bytes over the run)."""
-    from dgn_tpu_torch import run
     argv = path_argv(path) + ["--epochs", str(EPOCHS), "--device", DEVICE]
     counters = launch_counters()
     n_loads = len(_LOADS)
@@ -735,11 +780,13 @@ def drive_path(torch, path: TrainPath):
     for c in counters.values():
         c.launches = 0
     t0 = time.time()
-    report = run.run(argv)
+    report, text = run_captured(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {name: c.launches for name, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
+    ready = re.search(r"data ready in ([0-9.]+)s", text)
+    report["data_ready_s"] = float(ready.group(1)) if ready else None
     if len(_LOADS) != n_loads + 1:
         fail(f"{path.key}: the run did not load its dataset once through "
              "share_datasets' cache")
@@ -750,12 +797,16 @@ def drive_path(torch, path: TrainPath):
     forwards = steps + EPOCHS * evals + units["train"] + evals
     n_ext = path.extremes_layers * towers_of(model.cfg)
     n_adj = adjacency_builds(model.cfg, is_flat(path))
-    expected = {"build_pair_adjacency":
-                n_adj * (steps + units["train"] + evals),
+    # the trainer keeps the contexts of a cached loader's batches (built
+    # once); a BucketedLoader has no cache, so every forward pass builds
+    built = (steps + units["train"] + evals
+             if getattr(loaders["val"], "cache", False) else forwards)
+    expected = {"build_pair_adjacency": n_adj * built,
                 "segment_extremes_fwd": n_ext * forwards,
                 "segment_extremes_bwd": n_ext * steps}
     print(f"path {path.key}: dgn_tpu_torch.run {' '.join(argv)} -> "
-          f"{wall:.1f}s, final test {report['final']['test']}, packed "
+          f"{wall:.1f}s (data ready in {report['data_ready_s']}s), final "
+          f"test {report['final']['test']}, packed "
           f"batches per pass {units}, launches {launches} (expected "
           f"{expected}), peak device memory {peak / 2**20:.1f} MiB")
     if launches != expected:
@@ -764,10 +815,11 @@ def drive_path(torch, path: TrainPath):
     return report, launches, peak
 
 
-def step_profile(torch, step, batches, label: str, per_micro: dict):
+def step_profile(torch, step, batches, label: str, per_micro: dict,
+                 n_prof: int = 5):
     """Step time of step(batch) over steady steps, then device activity in
-    a profiled window; checks the launches each step makes (per_micro
-    times the step's micro-batches)."""
+    a profiled window of the first n_prof batches; checks the launches
+    each step makes (per_micro times the step's micro-batches)."""
     counters = launch_counters()
     before = {k: c.launches for k, c in counters.items()}
     micros = sum(len(gb) if isinstance(gb, list) else 1 for gb in batches)
@@ -791,7 +843,6 @@ def step_profile(torch, step, batches, label: str, per_micro: dict):
     print(f"train step ({label}): median {med:.3f} ms over {len(steady)} "
           f"steps (min {min(steady):.3f}, max {max(steady):.3f}; first "
           f"{times[0]:.1f} ms), peak device memory {peak / 2**20:.1f} MiB")
-    n_prof = 5
     events = profiled(torch, lambda: [step(gb) for gb in batches[:n_prof]])
     by_name = {}
     for e in events:
@@ -1159,40 +1210,51 @@ def training_phase(torch):
     return out, nets
 
 
-def collab_phase(torch, np):
-    """COLLAB link prediction through the entry point with every launch
-    counter at 0 before and required at 0 after (one flat graph: no
-    kernel), its report checked (Hits@K in [0, 1]); then MIN_STEPS train
-    steps timed and profiled, and one step from identical weights and
-    identical positive and negative edges on the CPU and on the card.
-    Returns the run's launches."""
-    from dgn_tpu_torch import run
-    from dgn_tpu_torch.config import config_from_args
-    argv = ["--dataset", "COLLAB", "--synthetic_size", str(COLLAB_NODES)]
+def drive_collab(torch, key: str, argv: list) -> dict:
+    """COLLAB link prediction through the entry point on argv with every
+    launch counter at 0 before and required at 0 after (one flat graph: no
+    kernel), its report checked (Hits@K in [0, 1]).  Returns the run's
+    launches."""
     counters = launch_counters()
     n_loads = len(_LOADS)
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
     t0 = time.time()
-    report = run.run(argv + ["--epochs", str(EPOCHS), "--device", DEVICE])
+    report, text = run_captured(argv + ["--epochs", str(EPOCHS), "--device",
+                                        DEVICE])
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {name: c.launches for name, c in counters.items()}
-    print(f"path collab: dgn_tpu_torch.run {' '.join(argv)} --epochs "
-          f"{EPOCHS} -> {wall:.1f}s, best val hits@50 "
+    ready = re.search(r"data ready in ([0-9.]+)s", text)
+    print(f"path {key}: dgn_tpu_torch.run {' '.join(argv)} --epochs "
+          f"{EPOCHS} -> {wall:.1f}s (data ready in "
+          f"{ready.group(1) if ready else None}s), best val hits@50 "
           f"{report['best_val_hits@50']}, test at best "
           f"{report['test_at_best_val']}, launches {launches} (expected 0), "
           f"peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     if len(_LOADS) != n_loads + 1:
-        fail("collab: the run did not load its dataset once through "
+        fail(f"{key}: the run did not load its dataset once through "
              "share_datasets' cache")
     if any(launches.values()):
-        fail(f"collab: kernel launches {launches} on the flat layout")
+        fail(f"{key}: kernel launches {launches} on the flat layout")
     hits = [report["best_val_hits@50"], *report["test_at_best_val"].values()]
     if not all(0.0 <= v <= 1.0 for v in hits):
-        fail(f"collab: Hits@K out of [0, 1]: {report}")
+        fail(f"{key}: Hits@K out of [0, 1]: {report}")
+    return launches
+
+
+def collab_phase(torch, np):
+    """COLLAB link prediction through the entry point (`drive_collab`);
+    then MIN_STEPS train steps timed and profiled, and one step from
+    identical weights and identical positive and negative edges on the CPU
+    and on the card.  Returns the run's launches."""
+    from dgn_tpu_torch import run
+    from dgn_tpu_torch.config import config_from_args
+    argv = ["--dataset", "COLLAB", "--synthetic_size", str(COLLAB_NODES)]
+    counters = launch_counters()
+    launches = drive_collab(torch, "collab", argv)
 
     cfg, _ = config_from_args(argv)
     gb, splits, trainer = run.prepare_collab(cfg, DEVICE)
@@ -1391,6 +1453,244 @@ def poison_check(torch, np, observe, extremes, bucket_sizes_for,
         fail("recipe: the extremes pair read a pad edge's lane")
 
 
+def write_real_files() -> float:
+    """Every dataset file of the real phase, in the reference's layouts
+    (tests/real_files.py), under REAL_DATA; REAL_DIR is emptied first, the
+    eigenvector cache with it.  Returns the seconds taken."""
+    import shutil
+    sys.path.insert(0, str(REPO / "tests"))
+    import real_files
+    shutil.rmtree(REAL_DIR, ignore_errors=True)
+    t = time.time()
+    data = str(REAL_DATA)
+    real_files.write_zinc(data, REAL_SIZES, seed=1)
+    real_files.write_ogb(data, "HIV", OGB_GRAPHS, seed=2)
+    # the reader keeps the last len // 10 train images for val: 1137
+    # images leave 1024 to train on
+    n_images = next(n for n in range(REAL_SIZES["train"], 2 * REAL_SIZES[
+        "train"] + 10) if n - n // 10 == REAL_SIZES["train"])
+    real_files.write_superpixels(
+        data, "CIFAR10", {"train": [150] * n_images,
+                          "test": [150] * REAL_SIZES["test"]}, seed=3)
+    real_files.write_sbm(data, "SBM_PATTERN", REAL_SIZES, seed=4)
+    real_files.write_collab(data, COLLAB_NODES, seed=5)
+    return time.time() - t
+
+
+@contextlib.contextmanager
+def counted_solves(calls: list):
+    """Appends the node count of every eigenproblem solved in the block
+    (spectral.graph_eig, which EigCache calls on a miss)."""
+    from dgn_tpu_torch import spectral
+    inner = spectral.graph_eig
+
+    def count(num_nodes, *args, **kwargs):
+        calls.append(num_nodes)
+        return inner(num_nodes, *args, **kwargs)
+
+    spectral.graph_eig = count
+    try:
+        yield
+    finally:
+        spectral.graph_eig = inner
+
+
+def zinc_cache_check(torch, path: TrainPath):
+    """zinc-real twice through the entry point, each with its dataset loaded
+    anew from the files: cold (an empty eigenvector cache) and warm.  Fails
+    unless the cold run solved eigenproblems, the warm one none, and their
+    eig arrays are equal (==).  Returns the warm run's launches."""
+    import numpy as np
+    from dgn_tpu_torch.config import config_from_args
+    cfg, _ = config_from_args(path_argv(path))
+    key = (cfg.dataset, dataclasses.astuple(cfg.data))
+    eigs, solves = {}, {}
+    for name in ("cold", "warm"):
+        _DATASETS.pop(key, None)
+        _PREPARED.pop(path.key, None)
+        calls = []
+        with counted_solves(calls):
+            report, launches, _ = drive_path(torch, path)
+        ds = _DATASETS[key]
+        eigs[name] = [g.eig for gs in ds.splits.values() for g in gs]
+        solves[name] = len(calls)
+        print(f"path {path.key} ({name} cache): data ready in "
+              f"{report['data_ready_s']}s, {len(calls)} eigenproblems "
+              f"solved, {len(list(REAL_CACHE.glob('*.npy')))} files in "
+              f"{REAL_CACHE.name}")
+    same = len(eigs["cold"]) == len(eigs["warm"]) and all(
+        a.dtype == b.dtype and a.shape == b.shape and bool((a == b).all())
+        for a, b in zip(eigs["cold"], eigs["warm"]))
+    print(f"path {path.key}: the warm run's {len(eigs['warm'])} eig arrays "
+          f"equal the cold run's: {same}")
+    if not (solves["cold"] > 0 and solves["warm"] == 0 and same):
+        fail(f"{path.key}: the eigenvector cache did not serve the warm run "
+             f"({solves}, equal eig {same})")
+    return launches
+
+
+def loader_label(loader) -> str:
+    """The pads of a loader: one geometry, or one per bucket."""
+    if hasattr(loader, "buckets"):
+        return "buckets " + ", ".join(
+            f"(n_pad={n}, e_pad={e}, pairs={pp})"
+            for (n, e), pp in zip(loader.geometry, loader.pair_pads))
+    return (f"n_pad={loader.n_pad} e_pad={loader.e_pad} "
+            f"pairs={loader.pair_pad}")
+
+
+def slot_efficiency(loader) -> dict:
+    """A loader's padding_stats, or for a BatchLoader the same figures of
+    its one geometry over one epoch."""
+    if hasattr(loader, "padding_stats"):
+        return loader.padding_stats()
+    n = len(loader)
+    return {"node_slot_efficiency": sum(g.num_nodes for g in loader.graphs)
+            / (n * loader.n_pad),
+            "edge_slot_efficiency": sum(g.num_edges for g in loader.graphs)
+            / (n * loader.e_pad), "n_buckets": 1,
+            "geometry": [(loader.n_pad, loader.e_pad)]}
+
+
+def real_step(torch, path: TrainPath) -> dict:
+    """The path's train step over MIN_STEPS of its shuffled train batches
+    (step_profile: median, busy ms, ops, peak MiB), the device activity
+    over one whole epoch of them: a bucketed loader's first batches may
+    all come from one bucket."""
+    ds, model, _, trainer, loaders, cfg = _PREPARED[path.key]
+    batches = list(loaders["train"])
+    net = model.cfg
+    n_ext = path.extremes_layers * towers_of(net)
+    return step_profile(
+        torch, trainer.train_step,
+        batches * math.ceil(MIN_STEPS / len(batches)),
+        f"{path.key}, {net.type_net} hidden {net.hidden_dim} L={net.L}, "
+        f"batch {cfg.params.batch_size}, {loader_label(loaders['train'])}",
+        {"build_pair_adjacency": adjacency_builds(net, is_flat(path)),
+         "segment_extremes_fwd": n_ext, "segment_extremes_bwd": n_ext},
+        n_prof=len(batches))
+
+
+def same_batch(torch, a, b) -> bool:
+    """Every tensor field of two GraphBatches equal, dtype included."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor):
+            if not (x.dtype == y.dtype and torch.equal(x, y)):
+                return False
+        elif x is not None or y is not None:
+            return False
+    return True
+
+
+def pack_phase(torch, np) -> None:
+    """Host packing ms per batch on this machine's host, over PACK_BATCHES
+    random train batches of the real-file datasets: the flat layout at its
+    worst-case pads (every batch fits) with numpy and with the native
+    packer, in turns, their outputs equal, for ZINC and HIV; and the block
+    layout at the pads of the path's own train loader, escapes included
+    (`_pack_one`), for ZINC and CIFAR10.  Fails unless the native packer
+    built here."""
+    from dgn_tpu_torch.data.loader import _order_for_layout
+    from dgn_tpu_torch.graph import bucket_sizes_for, pack_graphs
+    from dgn_tpu_torch.runtime import native
+    if not native.available():
+        fail("the native packer did not build on this host (g++)")
+    rng = np.random.default_rng(0)
+
+    def draws(key):
+        train = _PREPARED[key][0].train
+        size = min(_PREPARED[key][5].params.batch_size, len(train))
+        return train, size, [[train[i] for i in rng.choice(
+            len(train), size, replace=False)] for _ in range(PACK_BATCHES)]
+
+    def report(name, packer, size, ms):
+        print(f"host pack ({name}, {packer}): median "
+              f"{statistics.median(ms):.3f} ms per batch of {size} (min "
+              f"{min(ms):.3f}, max {max(ms):.3f}) over {len(ms)} batches")
+
+    for key in ("zinc-real", "hiv-real"):
+        train, size, batches = draws(key)
+        n_pad, e_pad = bucket_sizes_for(train, size)
+        ms = {False: [], True: []}
+        for i, batch in enumerate(batches):
+            out = {}
+            for use in ((False, True) if i % 2 == 0 else (True, False)):
+                t = time.perf_counter()
+                out[use] = pack_graphs(batch, n_pad=n_pad, e_pad=e_pad,
+                                       g_pad=size, native=use)
+                ms[use].append((time.perf_counter() - t) * 1e3)
+            if not same_batch(torch, out[False], out[True]):
+                fail(f"host pack ({key}): the native packer's batch differs "
+                     "from numpy's")
+        report(f"{key}, flat n_pad={n_pad} e_pad={e_pad}", "numpy", size,
+               ms[False])
+        report(f"{key}, flat", "native", size, ms[True])
+        print(f"host pack ({key}): native and numpy batches equal in all "
+              f"{len(batches)}; native/numpy median "
+              f"{statistics.median(ms[True]) / statistics.median(ms[False]):.3f}")
+    for key in ("zinc-real", "cifar10-real"):
+        _, size, batches = draws(key)
+        loader = _PREPARED[key][4]["train"]
+        escapes0, ms = loader.n_escapes, []
+        for batch in batches:
+            batch = _order_for_layout(batch, "mxu")
+            t = time.perf_counter()
+            loader._pack_one(batch)
+            ms.append((time.perf_counter() - t) * 1e3)
+        report(f"{key}, block {loader_label(loader)}, "
+               f"{loader.n_escapes - escapes0} escape repacks", "numpy", size,
+               ms)
+
+
+def real_phase(torch, np):
+    """The paths on dataset files in the reference's layouts: the files
+    written (write_real_files), zinc-real cold and warm (zinc_cache_check),
+    then hiv-real, cifar10-real, pattern-real and zinc-buckets through the
+    entry point with their launch counts checked (drive_path), zinc-real's
+    and zinc-buckets' steps with their slot efficiency and pads, COLLAB on
+    the ogbl-collab layout (drive_collab, no launch), and the host pack
+    phase.  Returns ({path: launches}, {path: net config})."""
+    t0 = time.time()
+    print(f"real phase: dataset files written in {write_real_files():.1f}s "
+          f"under {REAL_DATA.relative_to(REPO)}")
+    launches = {REAL_PATHS[0].key: zinc_cache_check(torch, REAL_PATHS[0])}
+    for path in REAL_PATHS[1:]:
+        report, launches[path.key], _ = drive_path(torch, path)
+        final = report["final"]
+        if not all(math.isfinite(v) for split in final.values()
+                   for v in split.values()):
+            fail(f"a non-finite value in the {path.key} report: {final}")
+        ds = _PREPARED[path.key][0]
+        print(f"path {path.key}: train/val/test "
+              f"{len(ds.train)}/{len(ds.val)}/{len(ds.test)} graphs from "
+              f"the files, train pads {loader_label(_PREPARED[path.key][4]['train'])}")
+    figures = {key: real_step(torch, next(p for p in REAL_PATHS
+                                          if p.key == key))
+               for key in ("zinc-real", "zinc-buckets")}
+    single = slot_efficiency(_PREPARED["zinc-real"][4]["train"])
+    bucketed = slot_efficiency(_PREPARED["zinc-buckets"][4]["train"])
+    print(f"zinc-buckets against zinc-real on the same files: train slot "
+          f"efficiency nodes {bucketed['node_slot_efficiency']:.4f} vs "
+          f"{single['node_slot_efficiency']:.4f}, edges "
+          f"{bucketed['edge_slot_efficiency']:.4f} vs "
+          f"{single['edge_slot_efficiency']:.4f} ({bucketed['n_buckets']} "
+          f"buckets {bucketed['geometry']} vs {single['geometry']}); "
+          + "; ".join(f"{name} {figures['zinc-buckets'][name]:.3f} vs "
+                      f"{figures['zinc-real'][name]:.3f}"
+                      for name in ("median_ms", "busy_ms", "ops",
+                                   "peak_mib")))
+    launches["collab-real"] = drive_collab(
+        torch, "collab-real", ["--dataset", "COLLAB", *DATA_FLAGS])
+    pack_phase(torch, np)
+    nets = {path.key: _PREPARED[path.key][1].cfg for path in REAL_PATHS}
+    _PREPARED.clear()
+    _DATASETS.clear()
+    torch.cuda.empty_cache()
+    print(f"real phase: {time.time() - t0:.1f}s")
+    return launches, nets
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", choices=("all", "kernels"),
@@ -1442,6 +1742,9 @@ def main() -> None:
     launches, nets = training_phase(torch)
     launches["collab"] = collab_phase(torch, np)
     recipe_phase(torch, np)
+    real_launches, real_nets = real_phase(torch, np)
+    launches.update(real_launches)
+    nets.update(real_nets)
     # `launches` is the kernel's count on the path whose shape the entry
     # timed ("path"); the counts of every path stand beside it (COLLAB's
     # checked to be 0 in collab_phase)
@@ -1449,7 +1752,7 @@ def main() -> None:
         counter = kern["name"].split("@")[0]
         kern["launches"] = launches[kern["path"]][counter]
         kern["launches_by_path"] = {p: c[counter] for p, c in launches.items()}
-        for path in PATHS:
+        for path in PATHS + REAL_PATHS:
             runs = (adjacency_builds(nets[path.key], is_flat(path))
                     if counter == "build_pair_adjacency"
                     else path.extremes_layers)

@@ -23,7 +23,7 @@ from .train.trainer import TrainParams
 class DataParams:
     """Dataset options the reference passes as CLI-only flags."""
     data_dir: str = ""            # root of the dataset files; "" -> synthetic
-    cache_dir: str = ""           # eig cache location (real-file loaders)
+    cache_dir: str = ""           # eig disk cache (spectral.EigCache)
     pos_enc_dim: int = 0
     lap_norm: str = "none"        # none | sym | walk
     coord_eig: bool = False       # superpixels only
@@ -169,7 +169,12 @@ def build_argparser() -> argparse.ArgumentParser:
     for name in ["residual", "edge_feat", "graph_norm", "batch_norm",
                  "divide_input_first", "divide_input_last", "decompose"]:
         ap.add_argument(f"--{name}", type=_bool, default=None)
-    ap.add_argument("--data_dir", type=str, default=None)
+    ap.add_argument("--data_dir", type=str, default=None,
+                    help="root of the dataset files (docs/DATA.md); "
+                         "synthetic data where they are absent")
+    ap.add_argument("--cache_dir", type=str, default=None,
+                    help="eigenvector disk cache: each (graph, k, norm) "
+                         "solved once across runs")
     ap.add_argument("--pos_enc_dim", type=int, default=None)
     ap.add_argument("--lap_norm", type=str, default=None)
     ap.add_argument("--coord_eig", type=_bool, default=None)
@@ -182,7 +187,9 @@ def build_argparser() -> argparse.ArgumentParser:
                          "operands, f32 accumulation (default float32)")
     ap.add_argument("--geometry", type=str, default=None,
                     choices=["typical", "worst"])
-    ap.add_argument("--n_buckets", type=int, default=None)
+    ap.add_argument("--n_buckets", type=int, default=None,
+                    help=">1: size-bucketed batching (data/loader.py "
+                         "BucketedLoader), one tight geometry per bucket")
     ap.add_argument("--micro_batches", type=str, default=None)
     # the run's recipe (run.run_one / run.run_seeds), not config fields
     ap.add_argument("--checkpoint", type=str, default=None,

@@ -1,5 +1,4 @@
-"""Host-side batch loader (counterpart of
-`dgn_tpu/data/loader.py:BatchLoader`).
+"""Host-side batch loaders (counterpart of `dgn_tpu/data/loader.py`).
 
 Shuffle with numpy's default_rng(seed) (the same stream as the reference
 package, so both see the same batches), under the block layout order each
@@ -9,7 +8,8 @@ layout (`layout="flat"`, the default, as in dgn_tpu) or the block one
 (`layout="mxu"`).  A batch that overflows that geometry is repacked
 at its exact need ("escape").  With micro_batches=K each batch is yielded as
 a list of K packed micro-batches (the trainer accumulates their gradients
-into one step).  The bucketed loader is not ported yet.
+into one step).  `BucketedLoader` (`--n_buckets K`) splits the graphs into
+K size classes, each packed at its own tight geometry.
 """
 from __future__ import annotations
 
@@ -179,3 +179,102 @@ class BatchLoader:
             yield gb
         if out is not None:
             self._cached = out
+
+
+class BucketedLoader:
+    """Size-bucketed batching (dgn_tpu/data/loader.py:62-179): K tight pad
+    geometries instead of one worst-case one.
+
+    The graphs are split into n_buckets equal-count quantiles by node count
+    (at most len(graphs) // batch_size of them, so each holds a full
+    batch); each bucket takes its own worst-case geometry (the block
+    layout's `mxu_bucket_sizes` and `mxu_pair_pad`, or the flat
+    `bucket_sizes_for`), and every batch is drawn from one bucket.  With
+    shuffle, each bucket's order and then the plan of batches are shuffled
+    by default_rng(seed) in dgn_tpu's order of draws, so the same seed
+    gives dgn_tpu's batches.  A batch that overflows its bucket (block
+    placement is order-sensitive) is repacked at its exact need
+    (`n_escapes`).
+
+    Eval metrics are exactly those of one bucket: they weigh real nodes,
+    edges and graphs, not batches.  Training sees batches of similar-size
+    graphs, which shifts the BatchNorm statistics; the reference shuffles
+    uniformly, so this stays opt-in.  Unlike BatchLoader it has no
+    micro-batches and no eval cache (as in dgn_tpu), and no drop_last; and
+    dgn_tpu's per-bucket `ext_caps` (static metadata of the TPU extremes
+    lowering) has no counterpart in the port's block layout."""
+
+    def __init__(self, graphs: Sequence[GraphData], batch_size: int,
+                 n_buckets: int = 4, shuffle: bool = False, seed: int = 0,
+                 layout: str = "flat"):
+        if layout not in LAYOUTS:
+            raise ValueError(f"unknown layout {layout!r}")
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.rng = np.random.default_rng(seed)
+        self.layout = layout
+        self.n_escapes = 0
+        self.g_pad = (round_up(batch_size, 128) if layout == "mxu"
+                      else batch_size)
+        graphs = list(graphs)
+        n_buckets = max(1, min(n_buckets, len(graphs) // max(batch_size, 1)))
+        order = np.argsort([g.num_nodes for g in graphs], kind="stable")
+        self.buckets: List[List[GraphData]] = []
+        self.geometry: List[tuple] = []     # (n_pad, e_pad) per bucket
+        self.pair_pads: List[Optional[int]] = []
+        for part in np.array_split(order, n_buckets):
+            if len(part) == 0:
+                continue
+            gs = [graphs[int(j)] for j in part]
+            if layout == "mxu":
+                n_pad, e_pad, _ = mxu_bucket_sizes(gs, batch_size)
+                pair_pad = mxu_pair_pad(gs, batch_size, n_pad, e_pad)
+            else:
+                n_pad, e_pad = bucket_sizes_for(gs, batch_size)
+                pair_pad = None
+            self.buckets.append(gs)
+            self.geometry.append((n_pad, e_pad))
+            self.pair_pads.append(pair_pad)
+
+    def _n_batches(self, gs) -> int:
+        return (len(gs) + self.batch_size - 1) // self.batch_size
+
+    def __len__(self):
+        return sum(self._n_batches(gs) for gs in self.buckets)
+
+    def padding_stats(self) -> dict:
+        """Node and edge slot efficiency of one epoch (real / padded)."""
+        real_n = real_e = pad_n = pad_e = 0
+        for gs, (n_pad, e_pad) in zip(self.buckets, self.geometry):
+            real_n += sum(g.num_nodes for g in gs)
+            real_e += sum(g.num_edges for g in gs)
+            pad_n += self._n_batches(gs) * n_pad
+            pad_e += self._n_batches(gs) * e_pad
+        return {"node_slot_efficiency": real_n / max(pad_n, 1),
+                "edge_slot_efficiency": real_e / max(pad_e, 1),
+                "n_buckets": len(self.buckets),
+                "geometry": list(self.geometry)}
+
+    def __iter__(self):
+        plan = []       # (bucket, index array into that bucket)
+        for b, gs in enumerate(self.buckets):
+            idx = np.arange(len(gs))
+            if self.shuffle:
+                self.rng.shuffle(idx)
+            plan += [(b, idx[i:i + self.batch_size])
+                     for i in range(0, len(idx), self.batch_size)]
+        if self.shuffle:
+            self.rng.shuffle(plan)
+        for b, chunk in plan:
+            n_pad, e_pad = self.geometry[b]
+            batch = _order_for_layout([self.buckets[b][int(j)]
+                                       for j in chunk], self.layout)
+            try:
+                yield _pack_at(batch, self.layout, n_pad, e_pad, self.g_pad,
+                               self.pair_pads[b])
+            except ValueError:
+                self.n_escapes += 1
+                n_pad, e_pad, pair_pad = _escape_pad([batch], self.layout,
+                                                     n_pad, e_pad)
+                yield _pack_at(batch, self.layout, n_pad, e_pad, self.g_pad,
+                               pair_pad)

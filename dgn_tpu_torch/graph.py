@@ -12,8 +12,11 @@ follow one another on the node axis, real edges are stable-sorted by
 `ops/segment.py` reduce over that edge list.  Block ("mxu"): nodes are
 placed so no graph straddles a 128-node block, edges are chunked per
 (src_block, dst_block) pair, and the graph axis is 128-aligned
-(`ops/mxu.py`).  The native packer and the halo spec are not ported: the
-flat numpy path here gives the arrays dgn_tpu's native packer gives.
+(`ops/mxu.py`).  The flat layout's edge pipeline (offsets, the (dst, src)
+sort, masks, normalisers, in-degrees) runs in the port's native packer
+(`runtime/packer.cpp`) when it is built, with the same arrays bit for bit
+as the numpy path.  The halo spec of dgn_tpu's edge-parallel layout is not
+ported.
 """
 from __future__ import annotations
 
@@ -113,16 +116,25 @@ def pack_graphs(graphs: Sequence[GraphData], *,
                 g_pad: Optional[int] = None,
                 k_eig: Optional[int] = None,
                 mxu_layout: bool = False,
+                native: Optional[bool] = None,
                 n_pairs_pad: Optional[int] = None) -> GraphBatch:
     """Pack graphs into one fixed-shape GraphBatch on the CPU, under the
     block layout when mxu_layout, else flat (dgn_tpu/graph.py:178-332).
-    Flat pads default to the exact totals (no pad node, no pad edge)."""
+    Flat pads default to the exact totals (no pad node, no pad edge).
+
+    native (flat layout only; the block layout ignores it, as dgn_tpu's
+    does): pack the edges with the C++ packer (runtime/); None uses it
+    when it is built, True requires it (RuntimeError without it), False
+    packs with numpy.  Both give the same arrays."""
     if mxu_layout:
         return _pack_graphs_mxu(graphs, n_pad=n_pad, e_pad=e_pad,
                                 g_pad=g_pad, k_eig=k_eig,
                                 n_pairs_pad=n_pairs_pad)
-    return _pack_graphs_flat(graphs, n_pad=n_pad, e_pad=e_pad, g_pad=g_pad,
-                             k_eig=k_eig)
+    if native is None:
+        from .runtime import available
+        native = available()
+    pack = _pack_graphs_native if native else _pack_graphs_flat
+    return pack(graphs, n_pad=n_pad, e_pad=e_pad, g_pad=g_pad, k_eig=k_eig)
 
 
 def _tensors(x):
@@ -231,6 +243,96 @@ def _pack_graphs_flat(graphs: Sequence[GraphData], *, n_pad: Optional[int],
         edge_feat=t(edge_feat), snorm_e=t(snorm_e), graph_mask=t(graph_mask),
         n_nodes=t(n_nodes), n_edges=t(n_edges), labels=t(labels),
         node_labels=t(node_labels), pos_enc=t(pos_enc))
+
+
+def _pack_graphs_native(graphs: Sequence[GraphData], *,
+                        n_pad: Optional[int], e_pad: Optional[int],
+                        g_pad: Optional[int],
+                        k_eig: Optional[int]) -> GraphBatch:
+    """_pack_graphs_flat with the edge pipeline in C++ (runtime/packer.cpp:
+    offsets, the (dst, src) counting sort, masks, normalisers, in-degrees
+    in one pass); the features are concatenated, and the edge features
+    follow the packer's permutation with one gather."""
+    from .runtime import pack_edges
+
+    g = len(graphs)
+    n_nodes = np.array([gr.num_nodes for gr in graphs], np.int32)
+    n_edges = np.array([gr.num_edges for gr in graphs], np.int32)
+    tot_n, tot_e = int(n_nodes.sum()), int(n_edges.sum())
+    n_pad = int(n_pad if n_pad is not None else tot_n)
+    e_pad = int(e_pad if e_pad is not None else max(tot_e, 1))
+    g_pad = int(g_pad if g_pad is not None else g)
+    if tot_n > n_pad or tot_e > e_pad or g > g_pad:
+        raise ValueError(
+            f"pack overflow: need (n={tot_n}, e={tot_e}, g={g}) "
+            f"but pad sizes are (n={n_pad}, e={e_pad}, g={g_pad})")
+    if k_eig is None:
+        k_eig = (graphs[0].eig.shape[1]
+                 if graphs and graphs[0].eig is not None else 0)
+
+    def cat(arrays, dtype=None):
+        return np.concatenate([np.asarray(a, dtype) for a in arrays])
+
+    ed = pack_edges(n_nodes, n_edges, cat([gr.src for gr in graphs], np.int32),
+                    cat([gr.dst for gr in graphs], np.int32),
+                    n_pad, e_pad, g_pad)
+    # pad edges at the last node, as the numpy path puts them
+    pad = ~ed["edge_mask"]
+    ed["src"][pad] = n_pad - 1
+    ed["dst"][pad] = n_pad - 1
+
+    def node_array(field, width, dtype):
+        out = np.zeros((n_pad,) + width, dtype)
+        out[:tot_n] = cat([getattr(gr, field) for gr in graphs])
+        return out
+
+    nf0 = graphs[0].node_feat
+    node_feat = node_array("node_feat", tuple(nf0.shape[1:]),
+                           nf0.dtype if nf0.dtype.kind == "f" else np.int32)
+    eig = np.zeros((n_pad, k_eig), np.float32)
+    if k_eig:
+        off = 0
+        for gr in graphs:
+            if gr.eig is not None:
+                eig[off:off + gr.num_nodes, :gr.eig.shape[1]] = \
+                    gr.eig[:, :k_eig]
+            off += gr.num_nodes
+    edge_feat = None
+    ef0 = graphs[0].edge_feat
+    if ef0 is not None:
+        edge_feat = np.zeros((e_pad,) + tuple(ef0.shape[1:]),
+                             ef0.dtype if ef0.dtype.kind == "f" else np.int32)
+        real = ed["perm"] >= 0
+        if tot_e:
+            edge_feat[real] = cat([gr.edge_feat for gr in graphs])[
+                ed["perm"][real]]
+    graph_mask = np.zeros((g_pad,), bool)
+    graph_mask[:g] = True
+    nn_ = np.zeros((g_pad,), np.int32)
+    nn_[:g] = n_nodes
+    ne_ = np.zeros((g_pad,), np.int32)
+    ne_[:g] = n_edges
+    labels = None
+    if graphs[0].label is not None:
+        lb0 = np.asarray(graphs[0].label)
+        labels = np.zeros((g_pad,) + lb0.shape, dtype=(
+            np.float32 if lb0.dtype.kind == "f" else lb0.dtype))
+        labels[:g] = np.stack([np.asarray(gr.label) for gr in graphs])
+    node_labels = (node_array("node_labels", (), np.int32)
+                   if graphs[0].node_labels is not None else None)
+    pos_enc = (node_array("pos_enc", (graphs[0].pos_enc.shape[1],),
+                          np.float32)
+               if graphs[0].pos_enc is not None else None)
+
+    t = _tensors
+    return GraphBatch(
+        node_feat=t(node_feat), node_mask=t(ed["node_mask"]),
+        node_graph=t(ed["node_graph"]), eig=t(eig),
+        in_degree=t(ed["in_degree"]), snorm_n=t(ed["snorm_n"]),
+        src=t(ed["src"]), dst=t(ed["dst"]), edge_mask=t(ed["edge_mask"]),
+        edge_feat=t(edge_feat), snorm_e=t(ed["snorm_e"]),
+        graph_mask=t(graph_mask), n_nodes=t(nn_), n_edges=t(ne_),
+        labels=t(labels), node_labels=t(node_labels), pos_enc=t(pos_enc))
 
 
 def round_up(x: int, m: int) -> int:

@@ -9,7 +9,10 @@ config -> model -> Trainer (Adam + ReduceLROnPlateau, seeded) -> epoch loop
 with val/test eval, min-lr and max_time stops -> final report (MAE for
 ZINC, accuracy for SBM and superpixels, ROC-AUC for HIV, AP for PCBA).  A
 batch above 1024 graphs runs as micro-batches (`resolve_micro_batches`),
-as the PCBA config's 2048 does.  `--dataset COLLAB` takes `run_collab`:
+as the PCBA config's 2048 does; `--n_buckets K` batches by size bucket
+(data/loader.py BucketedLoader).  `--data_dir` reads the reference's
+dataset files (docs/DATA.md), `--cache_dir` keeps their eigenvectors on
+disk.  `--dataset COLLAB` takes `run_collab`:
 one graph packed flat once, LinkPredTrainer, Hits@K (without the recipe
 flags below, as in dgn_tpu).
 
@@ -80,9 +83,6 @@ def pad_geometry(graphs, batch_size: int, layout: str = "flat"):
 
 def check_ported(cfg) -> None:
     """Raise NotImplementedError for run options the port lacks."""
-    d = cfg.data
-    if d.n_buckets > 1:
-        raise NotImplementedError("n_buckets > 1 is not ported yet")
     cfg.net_params.torch_compute_dtype()     # float32 or bfloat16 only
 
 
@@ -119,7 +119,7 @@ def prepare(cfg, device="cuda"):
     `datasets.load_dataset` is looked up at call time, so a caller may
     substitute a caching loader (chip_smoke.py's share_datasets)."""
     from .data.datasets import load_dataset
-    from .data.loader import BatchLoader
+    from .data.loader import BatchLoader, BucketedLoader
     from .ops.scalers import degree_stats
     from .train.trainer import Trainer
 
@@ -148,14 +148,24 @@ def prepare(cfg, device="cuda"):
     model, loss_fn = build_model(task, np_cfg, ds, generator)
     trainer = Trainer(model, loss_fn, cfg.params, task=task, device=device)
     bs = cfg.params.batch_size
+    layout = resolve_layout(cfg.data.layout)
+    if cfg.data.n_buckets > 1:
+        # one tight geometry per size bucket for every split, as
+        # dgn_tpu/run.py:151-156 builds them: no micro-batches, no eval
+        # cache (the trainer then rebuilds each eval batch's context)
+        loaders = {split: BucketedLoader(gs, batch_size=bs,
+                                         n_buckets=cfg.data.n_buckets,
+                                         shuffle=(split == "train"),
+                                         seed=cfg.params.seed, layout=layout)
+                   for split, gs in ds.splits.items()}
+        return ds, model, loss_fn, trainer, loaders
     mb = resolve_micro_batches(cfg.data.micro_batches, bs)
     # shuffled train: typical/worst per cfg; unshuffled val/test: exact
     # geometry (without micro-batching), and cached so the trainer keeps
     # their edge contexts
     loaders = {split: BatchLoader(gs, batch_size=bs,
                                   shuffle=(split == "train"),
-                                  seed=cfg.params.seed,
-                                  layout=resolve_layout(cfg.data.layout),
+                                  seed=cfg.params.seed, layout=layout,
                                   geometry=cfg.data.geometry,
                                   cache=(split != "train"),
                                   micro_batches=mb)

@@ -2,10 +2,16 @@
 
 Laplacian variant ('none' L=D-A | 'sym' | 'walk'), ascending eigenvalue
 sort, first k eigenvectors including the trivial one, from scipy's dense
-solvers (reference data/molecules.py:100-116 used ARPACK).  The disk cache
-of the reference package is not ported: only the real-file loaders use it.
+solvers (reference data/molecules.py:100-116 used ARPACK).  `EigCache`
+stores each solve on disk under the content hash dgn_tpu/spectral.py:101-108
+computes, byte for byte, so either package reads a cache directory the
+other wrote without a solve.
 """
 from __future__ import annotations
+
+import hashlib
+import os
+from typing import Optional
 
 import numpy as np
 import scipy.linalg
@@ -55,3 +61,53 @@ def graph_eig(num_nodes: int, src: np.ndarray, dst: np.ndarray, k: int,
     if vecs.shape[1] < k:
         vecs = np.pad(vecs, ((0, 0), (0, k - vecs.shape[1])))
     return vecs
+
+
+class EigCache:
+    """Disk cache of per-graph eig features keyed by content hash: one
+    `<key>.npy` per (graph, k, norm).  Without a directory every get
+    solves."""
+
+    def __init__(self, cache_dir: Optional[str] = None):
+        self.cache_dir = cache_dir
+        if cache_dir:
+            os.makedirs(cache_dir, exist_ok=True)
+
+    @staticmethod
+    def _key(num_nodes, src, dst, k, norm) -> str:
+        """SHA-256 of int64 num_nodes, src and dst, then "k:norm"; the first
+        32 hex characters."""
+        h = hashlib.sha256()
+        h.update(np.int64(num_nodes).tobytes())
+        h.update(np.asarray(src, dtype=np.int64).tobytes())
+        h.update(np.asarray(dst, dtype=np.int64).tobytes())
+        h.update(f"{k}:{norm}".encode())
+        return h.hexdigest()[:32]
+
+    def get(self, num_nodes, src, dst, k, norm="none") -> np.ndarray:
+        if not self.cache_dir:
+            return graph_eig(num_nodes, src, dst, k, norm)
+        path = os.path.join(self.cache_dir,
+                            self._key(num_nodes, src, dst, k, norm) + ".npy")
+        if os.path.exists(path):
+            return np.load(path)
+        out = graph_eig(num_nodes, src, dst, k, norm)
+        # written whole or not at all: a run stopped mid-write leaves no
+        # truncated entry behind
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
+            np.save(f, out)
+        os.replace(tmp, path)
+        return out
+
+
+def add_eig(graphs, k: int, norm: str = "none",
+            cache: Optional[EigCache] = None) -> None:
+    """Set .eig of each GraphData in place, through the cache if given."""
+    cache = cache or EigCache(None)
+    for g in graphs:
+        g.eig = cache.get(g.num_nodes, g.src, g.dst, k, norm)
+
+
+def batch_eig_cache_path(root: str, dataset: str, norm: str, k: int) -> str:
+    return os.path.join(root, f"eig_{dataset}_{norm}_{k}")

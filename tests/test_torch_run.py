@@ -85,9 +85,25 @@ def test_run_without_gpu_refuses_cpu_fallback():
 
 @pytest.mark.parametrize("flags", [["--n_buckets", "2"],
                                    ["--compute_dtype", "float16"]])
-def test_run_rejects_unported_options(flags):
-    with pytest.raises(NotImplementedError):
-        trun.run(SMALL + ["--device", "cpu"] + flags)
+def test_run_rejects_unported_options(flags, monkeypatch):
+    """float16 is refused; --n_buckets, refused until the bucketed loader
+    was ported, now runs, with a BucketedLoader for every split."""
+    if flags[0] != "--n_buckets":
+        with pytest.raises(NotImplementedError):
+            trun.run(SMALL + ["--device", "cpu"] + flags)
+        return
+    from dgn_tpu_torch.data.loader import BucketedLoader
+    built, prepare = [], trun.prepare
+    monkeypatch.setattr(trun, "prepare",
+                        lambda *a: built.append(prepare(*a)) or built[-1])
+    # batches of 8: 32 train graphs hold two buckets of full batches
+    report = trun.run(SMALL + ["--device", "cpu", "--batch_size", "8"]
+                      + flags)
+    assert report["epochs_run"] == 1 and math.isfinite(
+        report["final"]["test"]["mae"])
+    loaders = built[0][4]
+    assert all(isinstance(ld, BucketedLoader) for ld in loaders.values())
+    assert len(loaders["train"].buckets) == 2
 
 
 def test_run_collab_two_epochs_on_cpu(capsys):
