@@ -88,11 +88,28 @@ and no device line.  Phases, each of which fails the script:
    host packing ms per batch on this host: the flat layout with numpy and
    with the native packer (runtime/packer.cpp, built with g++ here; its
    batches must equal numpy's) for ZINC and HIV, and the block layout for
-   ZINC and CIFAR10.
+   ZINC and CIFAR10;
+8. data parallelism: the ZINC and HIV configs at full width (DP_PATHS)
+   at 1 NCCL rank and at 2 gloo ranks that share cuda:0 (NCCL refuses two
+   ranks on one GPU), spawned (dgn_tpu_torch/parallel/launch.py) with a
+   deadline, each rank through the port's rank entry (run._run_rank, what
+   `--n_devices` runs) for one epoch with its launch counters at 0 just
+   before and checked just after; then one data-parallel step with dropout
+   off against the one-process step on the same batch (1 rank) or on the
+   concatenated super-batch (2 ranks): loss, scores, the gradients' relative
+   distance (the weights after Adam printed);
+   then the config's step as shipped, timed per rank (median, all-reduce
+   ms, busy ms and ops on rank 0, peak MiB);
+9. dense: DenseDGNLayer (45 wide, 5 towers, `mean max min std dir1-dx
+   dir1-smooth` x 3 scalers) on 128 ZINC molecules padded to their largest
+   size, forward and backward with the eigenvectors solved on the card
+   (torch.linalg.eigh), held against the CPU from the same weights, with
+   the two solvers' null counts, then timed (the eigh alone too).
 
 Prints a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`.  Needs no network; starts no process other
-than nvidia-smi, nvcc and g++, and waits for each.
+than nvidia-smi, nvcc, g++ and the data-parallel ranks of phase 8, and
+waits for each (a rank past its deadline is terminated).
 """
 from __future__ import annotations
 
@@ -1691,6 +1708,514 @@ def real_phase(torch, np):
     return launches, nets
 
 
+# data parallelism on one card: NCCL refuses two ranks on one GPU, so the
+# 2-rank runs are gloo ranks that share cuda:0 (gloo all-reduces CUDA
+# tensors and gathers CPU ones); the 1-rank run is NCCL
+DP_PATHS = (TrainPath("dp-zinc", ZINC, 0, 1024),
+            TrainPath("dp-hiv", HIV, 4, 1024))
+DP_VARIANTS = (("nccl", 1), ("gloo", 2))
+DP_TIMEOUT = 600
+# the gradients the step applied (averaged over the ranks) against the
+# one-process step's: their relative L2 distance, held at DP_GRAD_REL.  The
+# sound step reads about 1e-6 on an H100 (6.4e-7 at 1 rank, 1.1e-6 at 2).
+# In float32 the posttrans kernels' gradients of a net without graph norm
+# (HIV) depend on the order a batch's graphs are packed in (6.15e-4 of
+# their norm on dp-hiv), so the one-process batch is packed in the
+# loader's order; dp_reference measures that sensitivity too
+# (order_sensitivity, ROADMAP C).  At 2 ranks dp_reference also plants the
+# fault this limit is for, sync batch norm's sum without its summed
+# backward (MissingCrossRankBackward), and the phase fails unless that
+# step's gradients part by more than DP_GRAD_REL.
+# Entries outside rtol 1e-3 / atol 1e-4 x max |grad| are counted and
+# printed.  The weights after Adam are printed, not held: Adam turns the
+# rounding noise of a gradient that is zero up to rounding into a step of
+# up to lr either way
+DP_GRAD_REL = 1e-4
+DP_GRAD_RTOL, DP_GRAD_ATOL_OF_MAX = 1e-3, 1e-4
+
+
+def grad_distance(torch, a, b) -> float:
+    """|a - b| / |b| over lists of gradient tensors (L2 over all)."""
+    num = sum(float(((x.double() - y.double()) ** 2).sum())
+              for x, y in zip(a, b))
+    return (num / sum(float((y.double() ** 2).sum()) for y in b)) ** 0.5
+
+
+def order_sensitivity(torch, cfg, ds, net, graphs, order) -> tuple:
+    """How far the one-process step's gradients move when the same graphs
+    are packed in shard order instead of descending size: in float32 on
+    the card, and in float64 on the CPU (the plain versions)."""
+    from dgn_tpu_torch import run
+    from dgn_tpu_torch.graph import pack_graphs
+    out = []
+    for device, dtype in ((DEVICE, torch.float32), ("cpu", torch.float64)):
+        grads = []
+        for gs in (graphs, [graphs[i] for i in order]):
+            model, loss_fn = run.build_model(
+                cfg.task, net, ds, torch.Generator().manual_seed(41))
+            model = model.to(device=device, dtype=dtype).train()
+            gb = pack_graphs(gs, mxu_layout=True).to(device)
+            gb = dataclasses.replace(gb, **{
+                f.name: getattr(gb, f.name).to(dtype)
+                for f in dataclasses.fields(gb)
+                if isinstance(getattr(gb, f.name), torch.Tensor)
+                and getattr(gb, f.name).is_floating_point()})
+            loss_fn(model(gb), gb).backward()
+            grads.append([p.grad for p in model.parameters()])
+        out.append(grad_distance(torch, *grads))
+    return tuple(out)
+
+
+class MissingCrossRankBackward:
+    """A planted fault, standing in for nn._AllReduceSum: the sum over the
+    ranks by a bare all_reduce, whose backward passes on this rank's
+    cotangent alone and so loses the other ranks' batch-norm terms."""
+
+    @staticmethod
+    def apply(x, group):
+        import torch.distributed as dist
+        total = x.detach().clone()
+        dist.all_reduce(total, group=group)
+        return x + (total - x.detach())
+
+
+def planted_fault_grads(torch, ds, net, cfg, mesh, gb) -> list:
+    """The gradients a data-parallel step applies on gb (this rank's shard)
+    from the same weights as dp_reference's, with sync batch norm's
+    all-reduce swapped for MissingCrossRankBackward on every rank."""
+    from dgn_tpu_torch import nn as tnn
+    from dgn_tpu_torch import run
+    from dgn_tpu_torch.parallel import DataParallelTrainer
+    model, loss_fn = run.build_model(cfg.task, net, ds,
+                                     torch.Generator().manual_seed(41))
+    trainer = DataParallelTrainer(model, loss_fn, cfg.params, mesh,
+                                  task=cfg.task)
+    sound, tnn._AllReduceSum = tnn._AllReduceSum, MissingCrossRankBackward
+    try:
+        trainer.train_step(gb)
+    finally:
+        tnn._AllReduceSum = sound
+    return [p.grad for p in model.parameters()]
+
+
+def dp_reference(torch, ds, net, cfg, mesh) -> dict:
+    """One data-parallel step (dropout and input dropout 0) on this rank's
+    shard of the first unshuffled super-batch, and on rank 0 the one-process
+    Trainer step from the same weights on the super-batch's graphs packed
+    as one batch (with one rank, the rank's own batch), its gradients
+    scaled by the rank count: loss, scores of every real graph, the
+    gradients Adam applied and the weights after it."""
+    import torch.distributed as dist
+    from dgn_tpu_torch import run
+    from dgn_tpu_torch.graph import pack_graphs
+    from dgn_tpu_torch.parallel import DataParallelTrainer, StackedLoader
+    from dgn_tpu_torch.train.trainer import Trainer
+    net0 = dataclasses.replace(net, dropout=0.0, in_feat_dropout=0.0)
+    model, loss_fn = run.build_model(cfg.task, net0, ds,
+                                     torch.Generator().manual_seed(41))
+    ref_model, _ = run.build_model(
+        cfg.task, dataclasses.replace(net0, bn_axis=None), ds,
+        torch.Generator().manual_seed(41))
+    trainer = DataParallelTrainer(model, loss_fn, cfg.params, mesh,
+                                  task=cfg.task)
+    per_dev = max(cfg.params.batch_size // mesh.size, 1)
+    n_pad, e_pad = run.pad_geometry(ds.train + ds.val + ds.test, per_dev,
+                                    "mxu")
+    loader = StackedLoader(ds.train, per_dev, mesh.size, rank=mesh.rank,
+                           n_pad=n_pad, e_pad=e_pad, layout="mxu")
+    shards, geometry = next(loader.super_batches())
+    gb = loader.pack_shard(*shards[mesh.rank], geometry)
+    loss, scores = trainer.train_step(gb)
+    view, all_scores = trainer.gather_shards(gb, scores)
+    out = {"loss": float(loss), "ranks": mesh.size,
+           "backend": dist.get_backend()}
+    fault = (planted_fault_grads(torch, ds, net0, cfg, mesh, gb)
+             if mesh.size > 1 else None)
+    if mesh.rank != 0:
+        return out
+    ref = Trainer(ref_model, loss_fn, cfg.params, task=cfg.task,
+                  device=mesh.device)
+    # the data-parallel step applies the gradients summed over the ranks,
+    # as dgn_tpu's does (ROADMAP C6): the reference's, times the rank count
+    ref._reduce_grads = lambda: [p.grad.mul_(mesh.size)
+                                 for p in ref_model.parameters()
+                                 if p.grad is not None]
+    # the one-device loader's batch: every real graph of the super-batch,
+    # in descending node count
+    graphs = [g for gs, ghost in shards if not ghost for g in gs]
+    order = sorted(range(len(graphs)), key=lambda i: -graphs[i].num_nodes)
+    one = gb if mesh.size == 1 else pack_graphs(
+        [graphs[i] for i in order], mxu_layout=True)
+    ref_loss, ref_scores = ref.train_step(one)
+    got = torch.from_numpy(all_scores[view.graph_mask.numpy()])
+    want = ref_scores[one.graph_mask.to(ref_scores.device)].cpu()
+    if mesh.size > 1:
+        want = want[torch.argsort(torch.tensor(order))]
+    pairs = [(name, a, b) for (name, a), b in zip(model.named_parameters(),
+                                                  ref_model.parameters())]
+    d_param = {name: (a.detach() - b.detach()).abs().max().item()
+               for name, a, b in pairs}
+    g_max = max(b.grad.abs().max().item() for _, _, b in pairs)
+    d_grad = max((a.grad - b.grad).abs().max().item() for _, a, b in pairs)
+    apart = sum(int((~torch.isclose(a.grad, b.grad, rtol=DP_GRAD_RTOL,
+                                    atol=DP_GRAD_ATOL_OF_MAX * g_max)).sum())
+                for _, a, b in pairs)
+    n_entries = sum(a.numel() for _, a, _ in pairs)
+    rel = grad_distance(torch, [a.grad for _, a, _ in pairs],
+                        [b.grad for _, _, b in pairs])
+    if mesh.size > 1:
+        out["fault_rel"] = grad_distance(torch, fault,
+                                         [b.grad for _, _, b in pairs])
+        out["order_f32"], out["order_f64"] = order_sensitivity(
+            torch, cfg, ds, dataclasses.replace(net0, bn_axis=None), graphs,
+            order)
+    worst = max(d_param, key=d_param.get)
+    out.update(ref_loss=float(ref_loss),
+               d_scores=(got - want).abs().max().item(),
+               scores_close=bool(torch.allclose(got, want, rtol=STEP_RTOL,
+                                                atol=STEP_ATOL)),
+               n_graphs=int(got.shape[0]),
+               d_param=d_param[worst], worst_param=worst,
+               d_param_rest=max(v for k, v in d_param.items()
+                                if not k.endswith("posttrans.bias")),
+               d_grad=d_grad, g_max=g_max, grads_apart=apart,
+               grad_rel=rel, grads_close=rel <= DP_GRAD_REL,
+               n_entries=n_entries)
+    return out
+
+
+def dp_timed(torch, trainer, batches, rank: int, n_prof: int = 5) -> dict:
+    """The trainer's step as shipped over MIN_STEPS steps of this rank's
+    shards: median ms (the first 3 dropped), host ms of each step's
+    all-reduces (the trainer's _all_reduce wrapped for these steps,
+    CUDA-synchronised around each call), then on rank 0 the device
+    activity of n_prof profiled steps (every rank steps alongside)."""
+    batches = batches * math.ceil(MIN_STEPS / len(batches))
+    torch.cuda.reset_peak_memory_stats()
+    comm, times = [], []
+    reduce = trainer._all_reduce
+
+    def timed_reduce(tensors, mean=True):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        reduce(tensors, mean)
+        torch.cuda.synchronize()
+        comm[-1] += (time.perf_counter() - t) * 1e3
+
+    trainer._all_reduce = timed_reduce
+    try:
+        for gb in batches:
+            comm.append(0.0)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, _ = trainer.train_step(gb)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            if not math.isfinite(float(loss)):
+                fail("a data-parallel step gave a non-finite loss")
+    finally:
+        del trainer._all_reduce
+    out = {"median_ms": statistics.median(times[3:]),
+           "min_ms": min(times[3:]), "max_ms": max(times[3:]),
+           "steps": len(times) - 3,
+           "comm_ms": statistics.median(comm[3:]),
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+    run = lambda: [trainer.train_step(gb) for gb in batches[:n_prof]]
+    if rank != 0:
+        run()
+        torch.cuda.synchronize()
+        return out
+    events = profiled(torch, run)
+    out["busy_ms"] = sum(e.device_time for e in events) / 1e3 / n_prof
+    out["ops"] = len(events) / n_prof
+    return out
+
+
+def dp_rank(rank: int, n: int, init_method: str, key: str, backend: str):
+    """One rank of a data-parallel path on cuda:0: joins the group, trains
+    the path's config for EPOCHS through the port's rank entry
+    (run._run_rank, what `--n_devices` runs in each rank) with every
+    launch counter at 0 just before and read just after, then the
+    reference step (dp_reference) and the timed steps (dp_timed)."""
+    import io
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(REPO))
+    from dgn_tpu_torch import run
+    from dgn_tpu_torch.config import config_from_args
+    from dgn_tpu_torch.parallel.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(DEVICE, 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=init_method, world_size=n,
+                            rank=rank)
+    try:
+        if dist.get_backend() != backend or dist.get_world_size() != n:
+            fail(f"{key}: the group is {dist.get_backend()} with "
+                 f"{dist.get_world_size()} ranks, not {backend} with {n}")
+        mesh = make_mesh(n, device=device)
+        path = next(p for p in DP_PATHS if p.key == key)
+        cfg, args = config_from_args(path_argv(path) + [
+            "--epochs", str(EPOCHS), "--device", DEVICE])
+        captured, prepare = [], run.prepare
+        run.prepare = lambda *a, **k: captured.append(prepare(*a, **k)) \
+            or captured[-1]
+        counters = launch_counters()
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            report = run._run_rank(cfg, args, mesh)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        run.prepare = prepare
+        ds, model, _, trainer, loaders = captured[0]
+        units = {split: len(ld) for split, ld in loaders.items()}
+        steps = EPOCHS * units["train"]
+        evals = units["val"] + units["test"]
+        # a StackedLoader keeps no eval cache: every forward pass builds
+        forwards = steps + EPOCHS * evals + units["train"] + evals
+        n_ext = path.extremes_layers * towers_of(model.cfg)
+        expected = {"build_pair_adjacency":
+                    adjacency_builds(model.cfg, False) * forwards,
+                    "segment_extremes_fwd": n_ext * forwards,
+                    "segment_extremes_bwd": n_ext * steps}
+        ref = dp_reference(torch, ds, model.cfg, cfg, mesh)
+        timing = dp_timed(torch, trainer, list(loaders["train"]), rank)
+        return {"rank": rank, "report": report, "launches": launches,
+                "expected": expected, "units": units, "wall_s": wall,
+                "run_peak_mib": peak, "ref": ref, "timing": timing,
+                "text": buf.getvalue() if rank == 0 else "",
+                "lr": cfg.params.init_lr,
+                "pads": (loaders["train"].n_pad, loaders["train"].e_pad,
+                         loaders["train"].pair_pad)}
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_phase() -> dict:
+    """Each DP_PATHS config at full width through DP_VARIANTS: 1 NCCL rank
+    and 2 gloo ranks on cuda:0, spawned with a deadline; every rank's
+    launches must be what its loaders imply, rank 0's data-parallel step
+    must equal its one-process reference step (loss, scores and gradients;
+    the weights after Adam printed), at 2 ranks the gradients of a planted
+    fault (MissingCrossRankBackward) must fail that gradient check, and
+    the ranks' losses must agree.
+    Returns {path-variant/rank r: launches}."""
+    from dgn_tpu_torch.parallel.launch import spawn
+    out = {}
+    for path in DP_PATHS:
+        for backend, n in DP_VARIANTS:
+            key = f"{path.key}-{backend}{n}"
+            t0 = time.time()
+            try:
+                ranks = spawn(dp_rank, n, (path.key, backend),
+                              timeout=DP_TIMEOUT)
+            except RuntimeError as e:
+                fail(f"{key}: {e}")
+            r0 = ranks[0]
+            print(r0["text"], end="")
+            for r in ranks:
+                out[f"{key}/rank{r['rank']}"] = r["launches"]
+                if r["launches"] != r["expected"]:
+                    fail(f"{key} rank {r['rank']}: kernel launches "
+                         f"{r['launches']} are not the expected "
+                         f"{r['expected']}")
+            final = r0["report"]["final"]
+            if not all(math.isfinite(v) for split in final.values()
+                       for v in split.values()):
+                fail(f"{key}: a non-finite value in the report: {final}")
+            ref = r0["ref"]
+            if ref["ranks"] != n or ref["backend"] != backend:
+                fail(f"{key}: the step ran on {ref['ranks']} {ref['backend']}"
+                     f" ranks")
+            if len({r["ref"]["loss"] for r in ranks}) != 1:
+                fail(f"{key}: the ranks' losses differ: "
+                     f"{[r['ref']['loss'] for r in ranks]}")
+            t = r0["timing"]
+            print(f"path {key}: {n} {backend} rank(s) on cuda:0, "
+                  f"{time.time() - t0:.1f}s (entry run {r0['wall_s']:.1f}s), "
+                  f"train pads (n, e, pairs) {r0['pads']}, packed shards per "
+                  f"rank {r0['units']}, final test "
+                  f"{final['test']}, launches per rank "
+                  f"{[r['launches'] for r in ranks]} (expected "
+                  f"{r0['expected']}), run peak "
+                  f"{[round(r['run_peak_mib'], 1) for r in ranks]} MiB")
+            print(f"  data-parallel step vs the one-process step on "
+                  f"{'the same batch' if n == 1 else 'the concatenated batch'}"
+                  f" ({ref['n_graphs']} graphs, dropout 0): loss "
+                  f"{ref['loss']:.6f} vs {ref['ref_loss']:.6f} (|diff| "
+                  f"{abs(ref['loss'] - ref['ref_loss']):.3g}), max |score "
+                  f"diff| {ref['d_scores']:.3g} (rtol {STEP_RTOL:g}, atol "
+                  f"{STEP_ATOL:g}), gradients apart by {ref['grad_rel']:.3g}"
+                  f" of their norm (at most {DP_GRAD_REL:g}; max |diff| "
+                  f"{ref['d_grad']:.3g}, max |grad| {ref['g_max']:.3g}, "
+                  f"{ref['grads_apart']} of {ref['n_entries']} entries "
+                  f"outside rtol {DP_GRAD_RTOL:g} / atol "
+                  f"{DP_GRAD_ATOL_OF_MAX:g} x max |grad|), max |param "
+                  f"diff after Adam| {ref['d_param']:.3g} "
+                  f"({ref['worst_param']}; {ref['d_param_rest']:.3g} without "
+                  f"the posttrans biases; lr {r0['lr']:g})")
+            if n > 1:
+                print(f"  planted fault (sync batch norm's sum without its "
+                      f"summed backward): gradients apart by "
+                      f"{ref['fault_rel']:.3g} of their norm (must exceed "
+                      f"{DP_GRAD_REL:g})")
+                if not ref["fault_rel"] > DP_GRAD_REL:
+                    fail(f"{key}: the gradient check does not see a step "
+                         "that misses the other ranks' batch-norm terms")
+                print(f"  the one-process step's gradients, the super-batch "
+                      f"packed in shard order against descending size: "
+                      f"apart by {ref['order_f32']:.3g} of their norm in "
+                      f"float32 on the card, {ref['order_f64']:.3g} in "
+                      f"float64 on the CPU")
+            medians = [round(r["timing"]["median_ms"], 3) for r in ranks]
+            print(f"  train step as shipped (rank 0): median "
+                  f"{t['median_ms']:.3f} ms over {t['steps']} steps (min "
+                  f"{t['min_ms']:.3f}, max {t['max_ms']:.3f}), busy "
+                  f"{t['busy_ms']:.3f} ms/step in {t['ops']:.0f} device "
+                  f"ops/step, all-reduce {t['comm_ms']:.3f} ms/step (host, "
+                  f"synchronised), peak {t['peak_mib']:.1f} MiB; per rank "
+                  f"median {medians} ms, all-reduce "
+                  f"{[round(r['timing']['comm_ms'], 3) for r in ranks]} ms")
+            if not (math.isclose(ref["loss"], ref["ref_loss"],
+                                 rel_tol=STEP_RTOL)
+                    and ref["scores_close"] and ref["grads_close"]):
+                fail(f"{key}: the data-parallel step disagrees with the "
+                     "one-process step")
+    return out
+
+
+DENSE_GRAPHS = 128
+DENSE_WIDTH = 45
+DENSE_AGGREGATORS = ("mean", "max", "min", "std", "dir1-dx", "dir1-smooth")
+DENSE_SCALERS = ("identity", "amplification", "attenuation")
+DENSE_TOWERS = 5
+DENSE_RTOL, DENSE_ATOL = 1e-4, 1e-5
+DENSE_GRAD_RTOL, DENSE_GRAD_ATOL = 1e-3, 1e-5
+DENSE_EIG_ATOL = 1e-4
+
+
+def dense_phase(torch, np) -> None:
+    """The dense research path (dgn_tpu_torch/dense) on the card:
+    DenseDGNLayer at hidden 45 with 5 towers over 128 synthetic ZINC
+    molecules padded to their largest node count (a pad node carries a
+    self-loop: an isolated node's mean is 0/0), forward and backward with
+    eigvec=None, so k_lowest_eigvecs runs torch.linalg.eigh on the card;
+    held against the CPU from the same weights given the card's
+    eigenvectors (their signs are the solver's), with the null counts
+    (|eigenvalue| < EPS) of the two solvers and the eigenvectors' agreement
+    up to sign on the graphs whose molecule's Fiedler value is simple
+    (held at DENSE_EIG_ATOL); then timed."""
+    from dgn_tpu_torch import dense
+    from dgn_tpu_torch.data.synthetic import synthetic_zinc
+    from dgn_tpu_torch.ops.scalers import degree_stats
+    t0 = time.time()
+    graphs = synthetic_zinc(DENSE_GRAPHS, seed=41)
+    n = max(g.num_nodes for g in graphs)
+    adj = np.zeros((len(graphs), n, n), np.float32)
+    real = np.zeros((len(graphs), n), bool)
+    for b, g in enumerate(graphs):
+        adj[b, g.dst, g.src] = 1.0
+        real[b, :g.num_nodes] = True
+        pads = np.arange(g.num_nodes, n)
+        adj[b, pads, pads] = 1.0
+    rng = np.random.default_rng(41)
+    x = rng.normal(size=(len(graphs), n, DENSE_WIDTH)).astype(np.float32)
+    ct = rng.normal(size=x.shape).astype(np.float32) * real[..., None]
+    avg_d = degree_stats(np.concatenate(
+        [np.bincount(g.dst, minlength=g.num_nodes) for g in graphs]))
+    layer = dense.DenseDGNLayer(
+        DENSE_WIDTH, DENSE_WIDTH, DENSE_AGGREGATORS, DENSE_SCALERS, avg_d,
+        torch.Generator().manual_seed(41), towers=DENSE_TOWERS)
+    card = copy.deepcopy(layer).to(DEVICE)
+    a_gpu, a_cpu = torch.from_numpy(adj).to(DEVICE), torch.from_numpy(adj)
+    vec_gpu = dense.k_lowest_eigvecs(a_gpu, 2)
+    vec_cpu = dense.k_lowest_eigvecs(a_cpu, 2)
+    nc_gpu = dense.spectral.null_counts(a_gpu).cpu()
+    nc_cpu = dense.spectral.null_counts(a_cpu)
+    # each padded graph is its molecule plus one component per pad node;
+    # column 1 is the molecule's Fiedler vector, defined up to sign where
+    # the molecule's Fiedler value is simple
+    fiedler = []
+    for b, g in enumerate(graphs):
+        vals = np.linalg.eigvalsh(np.diag(adj[b, :g.num_nodes, :g.num_nodes]
+                                          .sum(1)).astype(np.float64)
+                                  - adj[b, :g.num_nodes, :g.num_nodes])
+        if vals[1] > 1e-3 and vals[2] - vals[1] > 1e-3:
+            fiedler.append(b)
+    got, want = vec_gpu.cpu()[fiedler], vec_cpu[fiedler]
+    sign = torch.sign((got * want).sum(-2, keepdim=True))
+    d_vec = (got * torch.where(sign == 0, 1.0, sign) - want).abs().max()
+
+    def run(model, a, eigvec, xs):
+        xs = xs.clone().requires_grad_(True)
+        model.zero_grad(set_to_none=True)
+        out = model(xs, a, eigvec)
+        (out * torch.from_numpy(ct).to(a.device)).sum().backward()
+        return out, xs.grad
+
+    x_gpu = torch.from_numpy(x).to(DEVICE)
+    t1 = time.time()
+    out_gpu, dx_gpu = run(card, a_gpu, None, x_gpu)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    out_cpu, dx_cpu = run(layer, a_cpu, vec_gpu.cpu(), torch.from_numpy(x))
+    t3 = time.time()
+    mask = torch.from_numpy(real)
+    d_out = (out_gpu.detach().cpu()[mask] - out_cpu.detach()[mask]).abs()
+    ok = torch.allclose(out_gpu.detach().cpu()[mask], out_cpu.detach()[mask],
+                        rtol=DENSE_RTOL, atol=DENSE_ATOL)
+    grads = [(name, p.grad.cpu(), q.grad) for (name, p), q in
+             zip(card.named_parameters(), layer.parameters())]
+    grads.append(("x", dx_gpu.cpu(), dx_cpu))
+    d_grad = max((a - b).abs().max().item() for _, a, b in grads)
+    ok_grad = all(torch.allclose(a, b, rtol=DENSE_GRAD_RTOL,
+                                 atol=DENSE_GRAD_ATOL) for _, a, b in grads)
+    finite = bool(torch.isfinite(out_gpu).all()) and all(
+        bool(torch.isfinite(a).all()) for _, a, _ in grads)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # few iterations: cuSOLVER's eigh launches kernels per matrix, and the
+    # profiler's trace of them costs seconds per call to read
+    step = lambda i: run(card, a_gpu, None, x_gpu)
+    busy, call = timed(torch, step, iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    lap = dense.laplacian(a_gpu)
+    eigh_busy, eigh_call = timed(torch, lambda i: torch.linalg.eigh(lap),
+                                 iters=3, warmup=1)
+    agree = int((nc_gpu == nc_cpu).sum())
+    print(f"dense phase: DenseDGNLayer {DENSE_WIDTH}->{DENSE_WIDTH}, "
+          f"{DENSE_TOWERS} towers, aggregators {' '.join(DENSE_AGGREGATORS)}"
+          f", scalers {' '.join(DENSE_SCALERS)}, x {list(x.shape)} "
+          f"({len(graphs)} ZINC molecules padded to N={n}), eigvec=None; "
+          f"card vs CPU (CPU given the card's eigenvectors): max |out diff| "
+          f"{d_out.max().item():.3g} on real nodes (rtol {DENSE_RTOL:g}, atol"
+          f" {DENSE_ATOL:g}), max |grad diff| {d_grad:.3g} over "
+          f"{len(grads)} tensors (rtol {DENSE_GRAD_RTOL:g}, atol "
+          f"{DENSE_GRAD_ATOL:g})")
+    print(f"  null counts (|eigenvalue| < {dense.EPS:g}) equal on the card "
+          f"and the CPU for {agree} of {len(graphs)} graphs (card "
+          f"{sorted(set(nc_gpu.tolist()))}, CPU "
+          f"{sorted(set(nc_cpu.tolist()))}); eigenvectors 0-1 of the "
+          f"{len(fiedler)} graphs whose molecule has a simple Fiedler value "
+          f"equal up to sign to {d_vec.item():.3g}")
+    print(f"  forward + backward: {busy:.3f} ms busy ({call:.3f} ms per "
+          f"call), peak {peak:.1f} MiB; torch.linalg.eigh of the {n}x{n} "
+          f"Laplacians: {eigh_busy:.3f} ms busy ({eigh_call:.3f} ms per "
+          f"call); phase {time.time() - t0:.1f}s (the first card call "
+          f"{t2 - t1:.1f}s, the CPU's {t3 - t2:.1f}s)")
+    if not (ok and ok_grad and finite and agree == len(graphs)
+            and d_vec.item() <= DENSE_EIG_ATOL):
+        fail("the dense phase's card results disagree with the CPU's (or "
+             "are not finite, or the null counts or eigenvectors differ)")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", choices=("all", "kernels"),
@@ -1745,6 +2270,10 @@ def main() -> None:
     real_launches, real_nets = real_phase(torch, np)
     launches.update(real_launches)
     nets.update(real_nets)
+    t = time.time()
+    launches.update(dp_phase())
+    print(f"dp phase: {time.time() - t:.1f}s")
+    dense_phase(torch, np)
     # `launches` is the kernel's count on the path whose shape the entry
     # timed ("path"); the counts of every path stand beside it (COLLAB's
     # checked to be 0 in collab_phase)
@@ -1763,6 +2292,13 @@ def main() -> None:
             if not runs and n != 0:
                 fail(f"kernel {counter} was launched {n} times on the "
                      f"{path.key} path, which must not launch it")
+        for key, n in kern["launches_by_path"].items():
+            path = next((p for p in DP_PATHS if key.startswith(p.key + "-")),
+                        None)
+            runs = path is not None and (
+                counter == "build_pair_adjacency" or path.extremes_layers)
+            if runs and n <= 0:
+                fail(f"kernel {counter} was not launched on {key}")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

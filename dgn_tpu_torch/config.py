@@ -4,9 +4,15 @@
 The same JSON schema as the reference package (configs/*.json): the
 dataclass field names are the schema, unknown keys are rejected, and every
 CLI flag that is given overrides the JSON value.  The flags are those of the
-reference run script, plus `--device`; the multi-device and multi-host
-flags (`--n_devices`, `--partition`, `--multihost` and its addresses) are
-not ported yet.
+reference run script, plus `--device`.  The multi-device flags are
+dgn_tpu's (dgn_tpu/config.py:238-258), with its defaults, mapped onto one
+process per GPU (parallel/mesh.py): `--n_devices N` trains data-parallel
+on N ranks of one host (`cuda:0..N-1`, or N gloo ranks on the CPU with
+`--device cpu`); `--multihost` with `--coordinator_address`,
+`--num_processes` and `--process_id` makes this process one rank of a
+larger world (the torchrun environment when they are omitted);
+`--partition dp` is data parallelism, and `ep` (edge parallelism) raises
+NotImplementedError (ROADMAP A11b).
 """
 from __future__ import annotations
 
@@ -199,10 +205,28 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--seeds", type=str, default=None,
                     help="comma-separated seeds, e.g. 41,42,43,44: one run "
                          "per seed and their mean ± std")
+    # data parallelism (parallel/): dgn_tpu's flags and defaults
+    ap.add_argument("--n_devices", type=int, default=None,
+                    help="data-parallel ranks (default 1): rank r on "
+                         "cuda:r, or gloo ranks with --device cpu")
+    ap.add_argument("--partition", type=str, default="dp",
+                    choices=["dp", "ep"],
+                    help="dp = batch sharding; ep (edge-partitioned "
+                         "graphs) is not ported")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join a multi-host world (torch.distributed) as "
+                         "one rank; torchrun's environment when the three "
+                         "flags below are omitted")
+    ap.add_argument("--coordinator_address", type=str, default=None,
+                    help="rank 0's host:port")
+    ap.add_argument("--num_processes", type=int, default=None)
+    ap.add_argument("--process_id", type=int, default=None)
     return ap
 
 
-RUN_FLAGS = ("config", "device", "checkpoint", "resume", "seeds")
+RUN_FLAGS = ("config", "device", "checkpoint", "resume", "seeds",
+             "n_devices", "partition", "multihost", "coordinator_address",
+             "num_processes", "process_id")
 
 
 def config_from_args(argv=None) -> tuple:

@@ -58,7 +58,10 @@ stage rounds as dgn_tpu's does (ops/mxu.py, ops/aggregators.py), the
 per-edge path's gathers of h at src and dst included.  The flat layout,
 the pretrans and posttrans and the virtual node stay float32.
 
-Not ported yet: the sync-BN axis (bn_axis).
+bn_axis (the config's, "dp" under data parallelism) makes every layer's
+and tower's batch norm and the virtual node's a sync batch norm over the
+ranks of the mesh bound to the model (nn.MaskedBatchNorm, nn.bind_mesh),
+as dgn_tpu/layers/dgn.py:173-489 threads it.
 """
 from __future__ import annotations
 
@@ -133,7 +136,8 @@ class _DGNLayer(nn.Module):
                  generator: torch.Generator, dropout: float,
                  graph_norm: bool, batch_norm: bool, residual: bool,
                  posttrans_layers: int, input_concat: bool,
-                 compute_dtype: Optional[torch.dtype]):
+                 compute_dtype: Optional[torch.dtype],
+                 bn_axis: Optional[str] = None):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.aggregators = tuple(agg_ops.parse_names(aggregators))
@@ -149,7 +153,8 @@ class _DGNLayer(nn.Module):
         self.posttrans = (
             LinearParams(width, out_dim, generator) if posttrans_layers == 1
             else MLP(width, out_dim, out_dim, posttrans_layers, generator))
-        self.batchnorm_h = MaskedBatchNorm(out_dim) if batch_norm else None
+        self.batchnorm_h = (MaskedBatchNorm(out_dim, axis_name=bn_axis)
+                            if batch_norm else None)
 
     def _gather(self, gb: GraphBatch, h: torch.Tensor,
                 index: torch.Tensor) -> torch.Tensor:
@@ -192,11 +197,12 @@ class DGNLayerSimple(_DGNLayer):
                  generator: torch.Generator, dropout: float = 0.0,
                  graph_norm: bool = True, batch_norm: bool = True,
                  residual: bool = True, posttrans_layers: int = 1,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 bn_axis: Optional[str] = None):
         super().__init__(in_dim, out_dim, aggregators, scalers, avg_d,
                          generator, dropout, graph_norm, batch_norm, residual,
                          posttrans_layers, input_concat=False,
-                         compute_dtype=compute_dtype)
+                         compute_dtype=compute_dtype, bn_axis=bn_axis)
 
     def forward(self, gb: GraphBatch, h: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
@@ -225,11 +231,12 @@ class DGNLayerComplex(_DGNLayer):
                  graph_norm: bool = True, batch_norm: bool = True,
                  residual: bool = True, posttrans_layers: int = 1,
                  edge_dim: int = 0, pretrans_layers: int = 1,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 bn_axis: Optional[str] = None):
         super().__init__(in_dim, out_dim, aggregators, scalers, avg_d,
                          generator, dropout, graph_norm, batch_norm, residual,
                          posttrans_layers, input_concat=True,
-                         compute_dtype=compute_dtype)
+                         compute_dtype=compute_dtype, bn_axis=bn_axis)
         self.pretrans_layers = pretrans_layers
         width = 2 * in_dim + edge_dim
         self.pretrans = (
@@ -271,12 +278,13 @@ class DGNTower(DGNLayerComplex):
                  graph_norm: bool = True, batch_norm: bool = True,
                  posttrans_layers: int = 1, edge_dim: int = 0,
                  pretrans_layers: int = 1,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 bn_axis: Optional[str] = None):
         super().__init__(in_dim, out_dim, aggregators, scalers, avg_d,
                          generator, dropout, graph_norm, batch_norm,
                          residual=False, posttrans_layers=posttrans_layers,
                          edge_dim=edge_dim, pretrans_layers=pretrans_layers,
-                         compute_dtype=compute_dtype)
+                         compute_dtype=compute_dtype, bn_axis=bn_axis)
 
 
 class DGNLayerTower(nn.Module):
@@ -292,7 +300,8 @@ class DGNLayerTower(nn.Module):
                  graph_norm: bool = True, batch_norm: bool = True,
                  residual: bool = False, posttrans_layers: int = 1,
                  edge_dim: int = 0, pretrans_layers: int = 1,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 bn_axis: Optional[str] = None):
         super().__init__()
         if divide_input and in_dim % towers != 0:
             raise ValueError("towers must divide in_dim when divide_input")
@@ -308,7 +317,7 @@ class DGNLayerTower(nn.Module):
                 avg_d, generator, dropout=dropout, graph_norm=graph_norm,
                 batch_norm=batch_norm, posttrans_layers=posttrans_layers,
                 edge_dim=edge_dim, pretrans_layers=pretrans_layers,
-                compute_dtype=compute_dtype))
+                compute_dtype=compute_dtype, bn_axis=bn_axis))
         self.mixing = (FCLayer(out_dim, out_dim, generator, "leakyrelu")
                        if towers > 1 else None)
 
@@ -334,14 +343,15 @@ class VirtualNode(nn.Module):
 
     def __init__(self, dim: int, generator: torch.Generator,
                  dropout: float = 0.0, batch_norm: bool = False,
-                 residual: bool = True, vn_type: str = "mean"):
+                 residual: bool = True, vn_type: str = "mean",
+                 bn_axis: Optional[str] = None):
         super().__init__()
         if vn_type not in VN_TYPES:
             raise ValueError(f"bad vn_type {vn_type!r} (one of {VN_TYPES})")
         self.vn_type = vn_type
         self.residual = residual
         self.fc_layer = FCLayer(dim, dim, generator, "relu", dropout,
-                                batch_norm)
+                                batch_norm, bn_axis=bn_axis)
 
     def forward(self, gb: GraphBatch, h: torch.Tensor, vn_h: torch.Tensor,
                 generator: Optional[torch.Generator] = None):

@@ -43,8 +43,9 @@ accumulation (ops/mxu.py).  None and "float32" run float32 throughout.
 `DGNConfig` keeps the reference's full field set so the same JSON configs
 load; `DGNModel` raises NotImplementedError for any value the port does not
 cover yet (a compute_dtype other than float32 and bfloat16, which the
-adjacency kernel cannot write; the sync-BN bn_axis) instead of silently
-running something else.
+adjacency kernel cannot write) instead of silently running something
+else.  bn_axis ("dp") makes every batch norm a sync batch norm over the
+ranks of the mesh that nn.bind_mesh gives the model (parallel/dp.py).
 """
 from __future__ import annotations
 
@@ -127,10 +128,6 @@ def check_ported(cfg: DGNConfig) -> None:
     if cfg.edge_feat and cfg.edge_encoder not in ("embedding", "linear",
                                                   "bond"):
         raise ValueError(f"unknown edge_encoder {cfg.edge_encoder!r}")
-    if cfg.bn_axis is not None:
-        raise NotImplementedError(
-            f"DGNConfig.bn_axis={cfg.bn_axis!r} is not ported yet (the port "
-            "runs bn_axis=None)")
     cfg.torch_compute_dtype()
     cfg.agg_names()             # KeyError for an unknown aggregator
 
@@ -220,12 +217,13 @@ class DGNModel(nn.Module):
                 towers=cfg.towers, divide_input=divide,
                 edge_dim=cfg.edge_dim if cfg.edge_feat else 0,
                 pretrans_layers=cfg.pretrans_layers,
-                compute_dtype=cfg.torch_compute_dtype()))
+                compute_dtype=cfg.torch_compute_dtype(),
+                bn_axis=cfg.bn_axis))
             if self.use_vn and not last:
                 self.add_module(f"virtual_node_{i}", VirtualNode(
                     cfg.hidden_dim, generator, dropout=cfg.dropout,
                     batch_norm=cfg.batch_norm, residual=cfg.residual,
-                    vn_type=cfg.virtual_node))
+                    vn_type=cfg.virtual_node, bn_axis=cfg.bn_axis))
             in_dim = out_dim
         # the per-node head keeps MLPReadout's default halving widths, as in
         # the reference (dgn_net.py:205-206); the directional readouts

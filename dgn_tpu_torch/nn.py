@@ -12,6 +12,11 @@ distributions and draw from an explicit torch.Generator:
   * Embedding: N(0, 1).
 `dropout` has flax `nn.Dropout` semantics and draws from an explicit
 generator on the tensor's device.
+
+Sync batch norm: a MaskedBatchNorm built with axis_name (the config's
+`bn_axis`, threaded through FCLayer, MLP and the DGN layers as dgn_tpu
+threads it) sums its statistics over the ranks of the mesh that
+`bind_mesh` gives the model (parallel/dp.py DataParallelTrainer does).
 """
 from __future__ import annotations
 
@@ -101,6 +106,23 @@ class Embedding(nn.Module):
         return self.embedding.index_select(0, ids)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over a group's ranks; its backward sums the cotangents over
+    the ranks (the transpose of a psum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllReduceSum.apply(grad, ctx.group), None
+
+
 class MaskedBatchNorm(nn.Module):
     """torch BatchNorm1d over the node axis, masked for padding.
 
@@ -108,24 +130,54 @@ class MaskedBatchNorm(nn.Module):
     normalisation uses the biased variance, and the running buffers take the
     UNBIASED variance with momentum 0.1; eps 1e-5.  In eval mode the running
     statistics normalise.  Every row is normalised (pad rows stay masked
-    downstream)."""
+    downstream).
+
+    axis_name set (sync batch norm, dgn_tpu/nn.py:95-140): the count and
+    the masked sums of x and x^2 are summed over the ranks of the bound
+    mesh (`mesh`, set by bind_mesh) before the mean and variance, so every
+    rank normalises with, and keeps running buffers of, the statistics of
+    the whole super-batch.  The sum is differentiable and its backward sums
+    the cotangents over the ranks (_AllReduceSum), as a psum's transpose
+    does, so each rank's gradient carries the other ranks'
+    loss terms.  Without a bound mesh such a layer raises in training, as
+    dgn_tpu's psum over an unbound axis name does."""
 
     def __init__(self, features: int, momentum: float = 0.1,
-                 epsilon: float = 1e-5):
+                 epsilon: float = 1e-5, axis_name: Optional[str] = None):
         super().__init__()
         self.momentum = momentum
         self.epsilon = epsilon
+        self.axis_name = axis_name
+        self.mesh = None
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
+    def _sync(self, count, s1, s2):
+        """(count, s1, s2) summed over the bound mesh's ranks, in one
+        differentiable all-reduce."""
+        if self.mesh is None:
+            raise RuntimeError(
+                f"MaskedBatchNorm(axis_name={self.axis_name!r}) has no mesh "
+                "bound: call nn.bind_mesh(model, mesh) (DataParallelTrainer "
+                "does), or build the model with bn_axis=None")
+        f = s1.shape[0]
+        total = _AllReduceSum.apply(torch.cat([count.reshape(1), s1, s2]),
+                                    self.mesh.group)
+        return total[0], total[1:1 + f], total[1 + f:]
+
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
             m = mask.to(x.dtype)[:, None]
-            count = m.sum().clamp_min(1.0)
-            mean = (x * m).sum(0) / count
-            var = ((x * x * m).sum(0) / count - mean * mean).clamp_min(0.0)
+            count = m.sum()
+            s1 = (x * m).sum(0)
+            s2 = (x * x * m).sum(0)
+            if self.axis_name is not None:
+                count, s1, s2 = self._sync(count, s1, s2)
+            count = count.clamp_min(1.0)
+            mean = s1 / count
+            var = (s2 / count - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 unbiased = var * count / (count - 1.0).clamp_min(1.0)
                 self.mean.mul_(1 - self.momentum).add_(self.momentum * mean)
@@ -134,6 +186,14 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.mean, self.var
         return (x - mean) * torch.rsqrt(var + self.epsilon) * self.scale \
             + self.bias
+
+
+def bind_mesh(model: nn.Module, mesh) -> None:
+    """Give every sync batch norm of model (axis_name set) the mesh whose
+    ranks it sums over."""
+    for module in model.modules():
+        if isinstance(module, MaskedBatchNorm) and module.axis_name:
+            module.mesh = mesh
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
@@ -159,15 +219,18 @@ class FCLayer(LinearParams):
     (reference nets/layers.py:101-112; batch norm after dropout is a quirk
     kept on purpose).  kernel and bias as LinearParams; the batch norm is
     the child `MaskedBatchNorm_0`, as the reference names it, and takes its
-    statistics over the rows where `mask` is True."""
+    statistics over the rows where `mask` is True (summed over the mesh's
+    ranks with bn_axis)."""
 
     def __init__(self, in_size: int, out_size: int,
                  generator: torch.Generator, activation="relu",
-                 dropout: float = 0.0, b_norm: bool = False):
+                 dropout: float = 0.0, b_norm: bool = False,
+                 bn_axis: Optional[str] = None):
         super().__init__(in_size, out_size, generator)
         self.activation = get_activation(activation)
         self.rate = dropout
-        self.MaskedBatchNorm_0 = MaskedBatchNorm(out_size) if b_norm else None
+        self.MaskedBatchNorm_0 = (MaskedBatchNorm(out_size, axis_name=bn_axis)
+                                  if b_norm else None)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -186,17 +249,19 @@ class MLP(nn.Module):
     (reference nets/layers.py:120-155 as every DGN layer calls it).
     Children FCLayer_0 .. FCLayer_{layers-1}.  The DGN layers use it for
     pretrans_layers > 1 and posttrans_layers > 1; a single linear layer is
-    LinearParams there."""
+    LinearParams there.  bn_axis passes through to the FCLayers, as in
+    dgn_tpu; with no batch norm in them it changes nothing."""
 
     def __init__(self, in_size: int, hidden_size: int, out_size: int,
-                 layers: int, generator: torch.Generator):
+                 layers: int, generator: torch.Generator,
+                 bn_axis: Optional[str] = None):
         super().__init__()
         layers = max(layers, 1)
         dims = [in_size] + [hidden_size] * (layers - 1) + [out_size]
         for i in range(layers):
             self.add_module(f"FCLayer_{i}", FCLayer(
                 dims[i], dims[i + 1], generator,
-                "none" if i == layers - 1 else "relu"))
+                "none" if i == layers - 1 else "relu", bn_axis=bn_axis))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.children():

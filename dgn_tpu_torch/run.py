@@ -29,6 +29,18 @@ The training recipe of dgn_tpu/run.py:224-347:
 `--compute_dtype bfloat16` runs the block layout's edge stage on bfloat16
 operands with float32 accumulation, as dgn_tpu does (models/dgn_net.py).
 
+Data parallelism (dgn_tpu/run.py:113-145,236-247; parallel/): `--n_devices
+N` (N > 1) spawns N ranks on this host, rank r on `cuda:r` over NCCL, or N
+gloo ranks on the CPU with `--device cpu`; fewer visible GPUs than N is an
+error, never a fall-back to the CPU.  `--multihost` makes this process one
+rank of a world that other processes join (parallel/mesh.init_multihost).
+Each rank runs `prepare`'s dp branch: batch norm synced over the ranks
+(bn_axis "dp"), shards of max(batch_size // N, 1) graphs at pads for that
+shard size, a StackedLoader per split, a DataParallelTrainer; as in
+dgn_tpu, micro-batches and `--n_buckets` do not apply there.  Rank 0 alone
+prints, writes metrics.jsonl and saves checkpoints; every rank restores.
+`--partition ep` raises NotImplementedError (ROADMAP A11b).
+
 The model runs on the GPU (`--device cuda`, the default) unless the caller
 asks for the CPU (`--device cpu`); without a GPU and without that request
 the run stops with an error instead of running on the CPU.  At start the run
@@ -114,10 +126,15 @@ def build_model(task: str, np_cfg, ds, generator: torch.Generator):
     return factory(np_cfg, generator, pos_enc_in=pe)
 
 
-def prepare(cfg, device="cuda"):
+def prepare(cfg, device="cuda", mesh=None):
     """Dataset + model + trainer + loaders, shared by run() and tests.
     `datasets.load_dataset` is looked up at call time, so a caller may
-    substitute a caching loader (chip_smoke.py's share_datasets)."""
+    substitute a caching loader (chip_smoke.py's share_datasets).  With a
+    mesh (parallel/mesh.py), the data-parallel branch for its rank: model
+    at bn_axis "dp", per-rank shards of max(batch_size // ranks, 1)
+    graphs at pad_geometry's pads for that size over every split's
+    graphs, a StackedLoader per split and a DataParallelTrainer on the
+    mesh's device (device is then unused)."""
     from .data.datasets import load_dataset
     from .data.loader import BatchLoader, BucketedLoader
     from .ops.scalers import degree_stats
@@ -145,10 +162,12 @@ def prepare(cfg, device="cuda"):
         np_cfg = dataclasses.replace(np_cfg,
                                      pos_enc_dim=cfg.data.pos_enc_dim)
     generator = torch.Generator().manual_seed(cfg.params.seed)
-    model, loss_fn = build_model(task, np_cfg, ds, generator)
-    trainer = Trainer(model, loss_fn, cfg.params, task=task, device=device)
     bs = cfg.params.batch_size
     layout = resolve_layout(cfg.data.layout)
+    if mesh is not None:
+        return _prepare_dp(cfg, task, np_cfg, ds, generator, mesh, layout)
+    model, loss_fn = build_model(task, np_cfg, ds, generator)
+    trainer = Trainer(model, loss_fn, cfg.params, task=task, device=device)
     if cfg.data.n_buckets > 1:
         # one tight geometry per size bucket for every split, as
         # dgn_tpu/run.py:151-156 builds them: no micro-batches, no eval
@@ -169,6 +188,24 @@ def prepare(cfg, device="cuda"):
                                   geometry=cfg.data.geometry,
                                   cache=(split != "train"),
                                   micro_batches=mb)
+               for split, gs in ds.splits.items()}
+    return ds, model, loss_fn, trainer, loaders
+
+
+def _prepare_dp(cfg, task, np_cfg, ds, generator, mesh, layout):
+    """prepare's data-parallel branch (dgn_tpu/run.py:127-145)."""
+    from .parallel import DataParallelTrainer, StackedLoader
+    np_cfg = dataclasses.replace(np_cfg, bn_axis="dp")
+    model, loss_fn = build_model(task, np_cfg, ds, generator)
+    per_dev = max(cfg.params.batch_size // mesh.size, 1)
+    n_pad, e_pad = pad_geometry(ds.train + ds.val + ds.test, per_dev, layout)
+    trainer = DataParallelTrainer(model, loss_fn, cfg.params, mesh,
+                                  task=task)
+    loaders = {split: StackedLoader(gs, per_device_batch=per_dev,
+                                    n_shards=mesh.size, rank=mesh.rank,
+                                    n_pad=n_pad, e_pad=e_pad,
+                                    shuffle=(split == "train"),
+                                    seed=cfg.params.seed, layout=layout)
                for split, gs in ds.splits.items()}
     return ds, model, loss_fn, trainer, loaders
 
@@ -233,33 +270,128 @@ METRICS = {"zinc": "mae", "sbm": "acc", "superpixels": "acc",
            "hiv": "rocauc", "pcba": "ap"}
 
 
+def _precision() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def _banner(cfg, device, n_devices: int = 1) -> None:
+    layout = "flat" if cfg.task == "collab" else resolve_layout(
+        cfg.data.layout)
+    print(f"[dgn_tpu_torch] dataset={cfg.dataset} task={cfg.task} "
+          f"device={device} n_devices={n_devices} layout={layout} "
+          f"compute_dtype={cfg.net_params.compute_dtype or 'float32'}")
+
+
 def run(argv=None):
     from .config import config_from_args
 
     cfg, args = config_from_args(argv)
+    if args.partition == "ep":
+        raise NotImplementedError(
+            "--partition ep (edge-partitioned graphs with a halo exchange, "
+            "dgn_tpu/parallel/halo.py) is not ported yet: ROADMAP A11b")
+    if args.multihost:
+        return run_multihost(cfg, args)
+    n_devices = args.n_devices or 1
+    if n_devices > 1 and cfg.task != "collab":
+        return run_data_parallel(cfg, args, n_devices)
     device = resolve_device(args.device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    layout = "flat" if cfg.task == "collab" else resolve_layout(
-        cfg.data.layout)
-    print(f"[dgn_tpu_torch] dataset={cfg.dataset} task={cfg.task} "
-          f"device={device} layout={layout} "
-          f"compute_dtype={cfg.net_params.compute_dtype or 'float32'}")
+    _precision()
+    _banner(cfg, device)
     if cfg.task == "collab":
         return run_collab(cfg, device)
+    return run_mesh(cfg, args, device)
+
+
+def run_mesh(cfg, args, device, mesh=None):
+    """run_seeds or run_one, on one device or as one rank of mesh."""
     if args.seeds:
         return run_seeds(cfg, args, [int(x) for x in args.seeds.split(",")],
-                         device)
-    return run_one(cfg, args, device)
+                         device, mesh)
+    return run_one(cfg, args, device, mesh)
 
 
-def run_seeds(cfg, args, seeds, device):
+def run_multihost(cfg, args):
+    """`--multihost`: this process joins the world as one rank
+    (init_multihost) and trains its shard on its local device; n_devices
+    defaults to the world size, which it must equal."""
+    from .parallel.mesh import init_multihost, local_device, make_mesh
+    if args.device == "cuda":
+        resolve_device("cuda")
+    rank, world = init_multihost(args.coordinator_address,
+                                 args.num_processes, args.process_id,
+                                 device=args.device)
+    n_devices = args.n_devices or world
+    if n_devices != world:
+        raise SystemExit(f"dgn_tpu_torch.run: --n_devices {n_devices} but "
+                         f"the multihost world has {world} processes (one "
+                         "per device)")
+    print(f"[dgn_tpu_torch] multihost: process {rank}/{world}")
+    device = local_device(args.device, rank)
+    if cfg.task == "collab":         # one graph: no data parallelism
+        _precision()
+        return run_collab(cfg, device)
+    return _run_rank(cfg, args, make_mesh(world, device=device))
+
+
+def _run_rank(cfg, args, mesh):
+    _precision()
+    if mesh.rank == 0:
+        _banner(cfg, mesh.device, mesh.size)
+    if mesh.device.type == "cuda":
+        torch.cuda.set_device(mesh.device)
+    return run_mesh(cfg, args, mesh.device, mesh)
+
+
+def rank_main(rank: int, n: int, init_method: str, cfg, args, devices,
+              backend: str, threads: int = 0):
+    """One spawned rank of a one-host data-parallel run: joins the group
+    at init_method, then trains as run() does; returns this rank's
+    report."""
+    import torch.distributed as dist
+    from .parallel.mesh import make_mesh
+    if threads:
+        torch.set_num_threads(threads)
+    dist.init_process_group(backend, init_method=init_method, world_size=n,
+                            rank=rank)
+    try:
+        return _run_rank(cfg, args, make_mesh(n, device=devices[rank]))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_data_parallel(cfg, args, n_devices: int):
+    """`--n_devices N` on one host: N spawned ranks, rank r on cuda:r
+    (NCCL), or N gloo ranks on the CPU with --device cpu; returns rank
+    0's report."""
+    from .parallel.launch import spawn
+    if args.device == "cuda":
+        visible = (torch.cuda.device_count() if torch.cuda.is_available()
+                   else 0)
+        if visible < n_devices:
+            raise SystemExit(f"dgn_tpu_torch.run: --n_devices {n_devices} "
+                             f"needs {n_devices} GPUs, but {visible} are "
+                             "visible (one rank per GPU; --device cpu runs "
+                             "gloo ranks on the CPU)")
+        devices = [f"cuda:{r}" for r in range(n_devices)]
+        backend, threads = "nccl", 0
+    else:
+        devices = ["cpu"] * n_devices
+        backend = "gloo"
+        threads = max(1, torch.get_num_threads() // n_devices)
+    return spawn(rank_main, n_devices,
+                 (cfg, args, devices, backend, threads))[0]
+
+
+def run_seeds(cfg, args, seeds, device, mesh=None):
     """The multi-seed protocol (dgn_tpu/run.py:244-286): run_one per seed,
     each with its own out_dir and checkpoint directory (a shared one would
     make --resume restore one seed's weights into the next seed's run),
     then the mean and std over the seeds that reached a best validation
     epoch, for every metric their test reports carry."""
+    say = _say(mesh)
     reports = []
     for s in seeds:
         c = dataclasses.replace(
@@ -268,8 +400,8 @@ def run_seeds(cfg, args, seeds, device):
         a = argparse.Namespace(**vars(args))
         if args.checkpoint:
             a.checkpoint = os.path.join(args.checkpoint, f"seed{s}")
-        print(f"[dgn_tpu_torch] ==== seed {s} ====")
-        reports.append(run_one(c, a, device))
+        say(f"[dgn_tpu_torch] ==== seed {s} ====")
+        reports.append(run_one(c, a, device, mesh))
     done = [r["test_at_best_val"] for r in reports if r["test_at_best_val"]]
     keys = set().union(*map(set, done)) if done else set()
     agg = {}
@@ -278,49 +410,63 @@ def run_seeds(cfg, args, seeds, device):
             continue
         vals = [t[k] for t in done if k in t]
         agg[k] = {"mean": float(np.mean(vals)), "std": float(np.std(vals))}
-        print(f"[dgn_tpu_torch] TEST {k.upper()}: {np.mean(vals):.4f} "
-              f"± {np.std(vals):.4f} ({len(vals)}/{len(seeds)} seeds)")
+        say(f"[dgn_tpu_torch] TEST {k.upper()}: {np.mean(vals):.4f} "
+            f"± {np.std(vals):.4f} ({len(vals)}/{len(seeds)} seeds)")
     out = {"dataset": cfg.dataset, "device": str(device), "seeds": seeds,
            "test_at_best_val": agg,
            "per_seed": [r["test_at_best_val"] for r in reports]}
-    print("[dgn_tpu_torch] SEEDS " + json.dumps(out, default=float))
+    say("[dgn_tpu_torch] SEEDS " + json.dumps(out, default=float))
     return out
 
 
-def run_one(cfg, args, device):
+def _say(mesh):
+    """print on one device and on rank 0; nothing on the other ranks."""
+    if mesh is None or mesh.rank == 0:
+        return print
+    return lambda *a, **k: None
+
+
+def run_one(cfg, args, device, mesh=None):
     """One seed: prepare, restore a snapshot when --resume finds one in
     --checkpoint, fit with a metrics.jsonl stream in out_dir (and a
-    snapshot per epoch), then the final train/val/test evaluation."""
+    snapshot per epoch), then the final train/val/test evaluation.  As a
+    rank of mesh, only rank 0 prints and writes the stream (and the
+    trainer saves only there); every rank restores."""
     from .observe import MetricStream
     from .train.checkpoint import Checkpointer
 
+    say = _say(mesh)
     t0 = time.time()
-    ds, model, loss_fn, trainer, loaders = prepare(cfg, device)
-    print(f"[dgn_tpu_torch] data ready in {time.time() - t0:.1f}s "
-          f"(train/val/test = {len(ds.train)}/{len(ds.val)}/{len(ds.test)})")
+    ds, model, loss_fn, trainer, loaders = (
+        prepare(cfg, device) if mesh is None else prepare(cfg, device, mesh))
+    say(f"[dgn_tpu_torch] data ready in {time.time() - t0:.1f}s "
+        f"(train/val/test = {len(ds.train)}/{len(ds.val)}/{len(ds.test)})")
     n_param = sum(p.numel() for p in model.parameters())
-    print(f"[dgn_tpu_torch] MODEL/Total parameters: {n_param}")
+    say(f"[dgn_tpu_torch] MODEL/Total parameters: {n_param}")
     start_epoch, checkpointer = 0, None
     if args.checkpoint:
         checkpointer = Checkpointer(args.checkpoint)
         if args.resume and checkpointer.latest_epoch() is not None:
             start_epoch = checkpointer.restore(trainer)
-            print(f"[dgn_tpu_torch] resumed from epoch {start_epoch - 1}")
-    stream = MetricStream(os.path.join(cfg.out_dir, "metrics.jsonl"))
+            say(f"[dgn_tpu_torch] resumed from epoch {start_epoch - 1}")
+    stream = (MetricStream(os.path.join(cfg.out_dir, "metrics.jsonl"))
+              if mesh is None or mesh.rank == 0 else None)
     try:
         result = trainer.fit(loaders["train"], loaders["val"],
                              loaders["test"], checkpointer=checkpointer,
                              start_epoch=start_epoch, stream=stream)
     finally:
-        stream.close()
+        if stream is not None:
+            stream.close()
     final = {split: trainer.evaluate(loaders[split])
              for split in ("train", "val", "test")}
     metric = METRICS[cfg.task]
-    print(f"[dgn_tpu_torch] final {metric}: " + ", ".join(
+    say(f"[dgn_tpu_torch] final {metric}: " + ", ".join(
         f"{split} {final[split][metric]:.4f}" for split in final))
     report = {
         "dataset": cfg.dataset,
         "device": str(device),
+        "n_devices": 1 if mesh is None else mesh.size,
         "params": n_param,
         "epochs_run": len(result["history"]),
         "best_epoch": result["best_epoch"],
@@ -328,7 +474,7 @@ def run_one(cfg, args, device):
         "test_at_best_val": result["test_at_best"],
         "total_time_h": (time.time() - t0) / 3600.0,
     }
-    print("[dgn_tpu_torch] FINAL " + json.dumps(report, default=float))
+    say("[dgn_tpu_torch] FINAL " + json.dumps(report, default=float))
     return report
 
 

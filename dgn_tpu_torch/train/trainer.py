@@ -213,10 +213,19 @@ class Trainer:
             loss.backward()
             losses.append(loss.detach())
             scores.append(s.detach())
+        self._reduce_grads()
         self.optimizer.step()
         if not micro:
             return losses[0], scores[0]
         return torch.stack(losses).sum(), scores
+
+    def _reduce_grads(self) -> None:
+        """Between the backward passes and the optimizer step: nothing on
+        one device; the data-parallel trainer averages over its ranks."""
+
+    def out_of_time(self, t0: float) -> bool:
+        """The max_time stop of a run that started at t0."""
+        return (time.time() - t0) / 3600.0 > self.p.max_time
 
     @torch.no_grad()
     def eval_step(self, gb: GraphBatch):
@@ -327,7 +336,7 @@ class Trainer:
                     log("lr reached min_lr — stopping (reference "
                         "main_molecules.py:130-132)")
                     break
-                if (time.time() - t0) / 3600.0 > p.max_time:
+                if self.out_of_time(t0):
                     log("max_time reached — stopping")
                     break
         except KeyboardInterrupt:
