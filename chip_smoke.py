@@ -19,10 +19,12 @@ and no device line.  Phases, each of which fails the script:
    with the batch's covered, uncovered and all-pad-chunk counts, the
    launch's grid and shared bytes, the write floor (zero_() of a
    tensor of the output's shape and dtype, timed the same way) and the
-   write path (the kernel given an empty chunk range for every pair), the
+   write path (the kernel given an empty chunk range for every pair), and
+   at an edge-parallel rank's shard of a ZINC batch (2 ranks); the
    segment_extremes forward/backward
    pair at the HIV batch and at one PCBA micro-batch (plus tie, star,
-   multi-block and dense-block cases) with its grids;
+   multi-block and dense-block cases) with its grids, and the forward at an
+   edge-parallel rank's shard of an HIV batch;
    The extremes pair is also held against its plain version at F = 14, the
    width a towers layer gives each of its 5 towers at HIV's hidden 70;
 4. training, once per path: the port's entry point (dgn_tpu_torch.run)
@@ -96,11 +98,22 @@ and no device line.  Phases, each of which fails the script:
    `--n_devices` runs) for one epoch with its launch counters at 0 just
    before and checked just after; then one data-parallel step with dropout
    off against the one-process step on the same batch (1 rank) or on the
-   concatenated super-batch (2 ranks): loss, scores, the gradients' relative
-   distance (the weights after Adam printed);
-   then the config's step as shipped, timed per rank (median, all-reduce
-   ms, busy ms and ops on rank 0, peak MiB);
-9. dense: DenseDGNLayer (45 wide, 5 towers, `mean max min std dir1-dx
+   concatenated super-batch (2 ranks): loss, scores, the gradients'
+   relative distance, no parameter's gradient 0 (the weights after Adam
+   printed), at 2 ranks a planted fault (sync batch norm's sum without
+   its summed backward) that the gradient check must reject; then the
+   config's step as shipped, timed per rank (median, all-reduce ms, busy
+   ms and ops on rank 0, peak MiB);
+9. edge parallelism: EP_PATHS the same way with `--partition ep`, ep-zinc
+   at 1 NCCL rank and at 2 gloo ranks, ep-hiv (the extremes pair on each
+   rank's shard) and ep-pattern (node-level) at 2 gloo ranks, held against
+   the one-process step on the same graphs; at 2 ranks the sums over the
+   ranks without their summed backward must be rejected, and on ep-hiv the
+   halo exchange without its reverse backward too (printed elsewhere,
+   beside the halo's real rows: see GRAD_REL); each rank's shard geometry,
+   the host ms of the halo exchanges, and the exchange's transport;
+10. scaling: tools/scaling.py's dp and ep rows at 1 and 2 ranks;
+11. dense: DenseDGNLayer (45 wide, 5 towers, `mean max min std dir1-dx
    dir1-smooth` x 3 scalers) on 128 ZINC molecules padded to their largest
    size, forward and backward with the eigenvectors solved on the card
    (torch.linalg.eigh), held against the CPU from the same weights, with
@@ -108,8 +121,8 @@ and no device line.  Phases, each of which fails the script:
 
 Prints a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`.  Needs no network; starts no process other
-than nvidia-smi, nvcc, g++ and the data-parallel ranks of phase 8, and
-waits for each (a rank past its deadline is terminated).
+than nvidia-smi, nvcc, g++ and the ranks of phases 8-10, and waits for
+each (a rank past its deadline is terminated).
 """
 from __future__ import annotations
 
@@ -391,6 +404,18 @@ def first_train_batch(key: str):
     return next(iter(prepared(key)[4]["train"]))
 
 
+def ep_first_shard(key: str):
+    """Rank 0's shard of the first batch of the path's train split at 2
+    edge-parallel ranks, as the entry point's shuffled PartitionedLoader
+    cuts it (the ep paths train on the same datasets)."""
+    from dgn_tpu_torch.parallel import PartitionedLoader
+    ds, *_, cfg = prepared(key)
+    p = cfg.params
+    return next(iter(PartitionedLoader(ds.train, p.batch_size, 2, rank=0,
+                                       shuffle=True, seed=p.seed,
+                                       layout="mxu")))
+
+
 def family_weights(torch, gb, families):
     """[K, E] edge-mask-folded weights of the families ("one", "delta{k}",
     "abs{k}") as build_edge_context makes them, for a batch on the card."""
@@ -501,6 +526,10 @@ def adjacency_phase(torch, np):
     w_zinc = family_weights(torch, zinc, ("one", "delta1", "abs1"))
     cifar = first_train_batch("cifar10").to(dev)
     w_cifar = family_weights(torch, cifar, ("one", "delta1", "delta2"))
+    # an edge-parallel rank's [own | halo] node axis and its [interior |
+    # boundary] pairs
+    ep = ep_first_shard("zinc").to(dev)
+    w_ep = family_weights(torch, ep, ("one", "delta1", "abs1"))
 
     sbm = packed(multiblock_graphs(np, GraphData))
     lay = sbm.mxu
@@ -515,7 +544,8 @@ def adjacency_phase(torch, np):
              ("zinc_main_bf16", w_zinc, zinc.mxu, torch.bfloat16),
              ("sbm_multiblock_f32", w_sbm, lay.to(dev), torch.float32),
              ("cifar10_main_f32", w_cifar, cifar.mxu, torch.float32),
-             ("cifar10_main_bf16", w_cifar, cifar.mxu, torch.bfloat16)]
+             ("cifar10_main_bf16", w_cifar, cifar.mxu, torch.bfloat16),
+             ("ep_zinc_shard_f32", w_ep, ep.mxu, torch.float32)]
     errs = {}
     for name, w, layout, dt in cases:
         got = adjacency.build_pair_adjacency(w, layout, dt)
@@ -550,7 +580,12 @@ def adjacency_phase(torch, np):
             dict(common, name="build_pair_adjacency@cifar10-bf16",
                  path="cifar10-bf16", max_abs_err=errs["cifar10_main_bf16"],
                  **time_adjacency(torch, w_cifar, cifar.mxu, "cifar10",
-                                  bf16))]
+                                  bf16)),
+            dict(common, name="build_pair_adjacency@ep-zinc",
+                 path="ep-zinc-gloo2/rank0",
+                 max_abs_err=errs["ep_zinc_shard_f32"],
+                 **time_adjacency(torch, w_ep, ep.mxu, "ep-zinc shard",
+                                  f32))]
 
 
 def star_graph(np, GraphData, n: int = 120, hub: int = 10):
@@ -691,7 +726,9 @@ def extremes_phase(torch, np):
         v = rng.normal(size=(gb.num_edges_padded, f))
         return (np.round(v * 2.0) / 2.0).astype(np.float32)
 
+    hiv_ep = ep_first_shard("hiv")
     ge_hiv, ge_pcba = layer_values(hiv), layer_values(pcba)
+    ge_ep = layer_values(hiv_ep)
     star = packed([star_graph(np, GraphData)])
     sbm = packed(multiblock_graphs(np, GraphData))
     dense = packed([dense_graph(np, GraphData)])
@@ -703,7 +740,8 @@ def extremes_phase(torch, np):
              ("star_in_degree_119", star, quantized(star, 16)),
              ("sbm_multiblock", sbm, quantized(sbm, 16)),
              ("dense_block", dense, quantized(dense, f_main)),
-             ("pcba_micro_f70", pcba, ge_pcba)]
+             ("pcba_micro_f70", pcba, ge_pcba),
+             ("ep_hiv_shard_f70", hiv_ep, ge_ep)]
     errs = {}
     for name, gb, vals in cases:
         layout, mask = gb.mxu.to(dev), gb.edge_mask.to(dev)
@@ -758,6 +796,14 @@ def extremes_phase(torch, np):
             out.append(dict(common, name=name + suffix, replaces=replaces,
                             path=path, max_abs_err=errs[case][i],
                             **times[i]))
+    # the forward at an edge-parallel rank's shard: its [own | halo] node
+    # blocks, of which the halo ones take no edge
+    out.append(dict(common, name="segment_extremes_fwd@ep-hiv",
+                    replaces="dgn_tpu/ops/extremes.py:200",
+                    path="ep-hiv-gloo2/rank0",
+                    max_abs_err=errs["ep_hiv_shard_f70"][0],
+                    **time_extremes(torch, np, hiv_ep, ge_ep,
+                                    "ep-hiv shard")[0]))
     return out
 
 
@@ -1708,30 +1754,51 @@ def real_phase(torch, np):
     return launches, nets
 
 
-# data parallelism on one card: NCCL refuses two ranks on one GPU, so the
-# 2-rank runs are gloo ranks that share cuda:0 (gloo all-reduces CUDA
-# tensors and gathers CPU ones); the 1-rank run is NCCL
+# The multi-rank phases (data and edge parallelism) on one card: NCCL
+# refuses two ranks on one GPU, so the 2-rank runs are gloo ranks that share
+# cuda:0 (gloo all-reduces and all-to-alls CUDA tensors and gathers CPU
+# ones); the 1-rank runs are NCCL.  Full width, 8 train batches of 128
+# graphs per path (PATTERN's 4096 gives 1024 train graphs, load_sbm keeps
+# n // 4)
+PATTERN = "SBMs_node_clustering_DGN_PATTERN.json"
 DP_PATHS = (TrainPath("dp-zinc", ZINC, 0, 1024),
             TrainPath("dp-hiv", HIV, 4, 1024))
-DP_VARIANTS = (("nccl", 1), ("gloo", 2))
-DP_TIMEOUT = 600
-# the gradients the step applied (averaged over the ranks) against the
-# one-process step's: their relative L2 distance, held at DP_GRAD_REL.  The
-# sound step reads about 1e-6 on an H100 (6.4e-7 at 1 rank, 1.1e-6 at 2).
-# In float32 the posttrans kernels' gradients of a net without graph norm
+EP_PATHS = (TrainPath("ep-zinc", ZINC, 0, 1024),
+            TrainPath("ep-hiv", HIV, 4, 1024),
+            TrainPath("ep-pattern", PATTERN, 0, 4096))
+# (backend, ranks) of each path's runs
+VARIANTS = {"dp-zinc": (("nccl", 1), ("gloo", 2)),
+            "dp-hiv": (("nccl", 1), ("gloo", 2)),
+            "ep-zinc": (("nccl", 1), ("gloo", 2)),
+            "ep-hiv": (("gloo", 2),), "ep-pattern": (("gloo", 2),)}
+PARALLEL_TIMEOUT = 600
+# the gradients the step applied against the one-process step's: their
+# relative L2 distance, held at GRAD_REL.  The sound step reads about 1e-6
+# on an H100 (6.4e-7 at 1 rank, 1.1e-6 at 2, dp).  dp's gradients are the
+# ranks' sum, as dgn_tpu's (ROADMAP C6), against the one-process step's
+# times the rank count; ep's are the one-process gradients of L.  In
+# float32 the posttrans kernels' gradients of a net without graph norm
 # (HIV) depend on the order a batch's graphs are packed in (6.15e-4 of
-# their norm on dp-hiv), so the one-process batch is packed in the
+# their norm on dp-hiv), so dp's one-process batch is packed in the
 # loader's order; dp_reference measures that sensitivity too
-# (order_sensitivity, ROADMAP C).  At 2 ranks dp_reference also plants the
-# fault this limit is for, sync batch norm's sum without its summed
-# backward (MissingCrossRankBackward), and the phase fails unless that
-# step's gradients part by more than DP_GRAD_REL.
-# Entries outside rtol 1e-3 / atol 1e-4 x max |grad| are counted and
-# printed.  The weights after Adam are printed, not held: Adam turns the
-# rounding noise of a gradient that is zero up to rounding into a step of
-# up to lr either way
-DP_GRAD_REL = 1e-4
-DP_GRAD_RTOL, DP_GRAD_ATOL_OF_MAX = 1e-3, 1e-4
+# (order_sensitivity, ROADMAP C).  At 2 ranks each reference plants faults
+# that this limit is for.  Gated: the sums over the ranks without their
+# summed backward (MissingCrossRankBackward: sync batch norm, and in ep
+# the readout's and the virtual node's pools), and on ep-hiv the halo
+# exchange without its reverse backward (MissingExchangeBackward).  That
+# fault moves only the cotangent of the halo rows (the cut crosses one
+# graph: a few rows against thousands of own rows), and how far that moves
+# the gradients depends on the net: on ep-hiv (the simple layer, no graph
+# norm) far past GRAD_REL; on ep-zinc and ep-pattern (the complex layer
+# with graph norm) less than the sound step's own float32 distance, so
+# there it is printed beside the halo's real rows, not held
+# (tests/test_torch_halo.py holds it element by element).  Entries outside
+# rtol 1e-3 / atol 1e-4 x max |grad| are counted and printed.  The weights
+# after Adam are printed, not held: Adam turns the rounding noise of a
+# gradient that is zero up to rounding into a step of up to lr either way
+GRAD_REL = 1e-4
+GRAD_RTOL, GRAD_ATOL_OF_MAX = 1e-3, 1e-4
+EXCHANGE_FAULT_GATED = ("ep-hiv",)
 
 
 def grad_distance(torch, a, b) -> float:
@@ -1769,7 +1836,7 @@ def order_sensitivity(torch, cfg, ds, net, graphs, order) -> tuple:
 class MissingCrossRankBackward:
     """A planted fault, standing in for nn._AllReduceSum: the sum over the
     ranks by a bare all_reduce, whose backward passes on this rank's
-    cotangent alone and so loses the other ranks' batch-norm terms."""
+    cotangent alone and so loses the other ranks' terms."""
 
     @staticmethod
     def apply(x, group):
@@ -1779,45 +1846,88 @@ class MissingCrossRankBackward:
         return x + (total - x.detach())
 
 
-def planted_fault_grads(torch, ds, net, cfg, mesh, gb) -> list:
-    """The gradients a data-parallel step applies on gb (this rank's shard)
-    from the same weights as dp_reference's, with sync batch norm's
-    all-reduce swapped for MissingCrossRankBackward on every rank."""
-    from dgn_tpu_torch import nn as tnn
-    from dgn_tpu_torch import run
-    from dgn_tpu_torch.parallel import DataParallelTrainer
-    model, loss_fn = run.build_model(cfg.task, net, ds,
-                                     torch.Generator().manual_seed(41))
-    trainer = DataParallelTrainer(model, loss_fn, cfg.params, mesh,
-                                  task=cfg.task)
-    sound, tnn._AllReduceSum = tnn._AllReduceSum, MissingCrossRankBackward
+class MissingExchangeBackward:
+    """A planted fault, standing in for graph._AllToAll: the same exchange
+    forward, a backward that returns the cotangent where it is instead of
+    sending it back to the rows' owners."""
+
+    @staticmethod
+    def apply(x, group):
+        from dgn_tpu_torch import graph as tgraph
+        return x + (tgraph.exchange(x, group) - x).detach()
+
+
+def with_fault(module, name: str, fault, step):
+    """step() with module.name swapped for fault on this rank."""
+    sound = getattr(module, name)
+    setattr(module, name, fault)
     try:
-        trainer.train_step(gb)
+        return step()
     finally:
-        tnn._AllReduceSum = sound
-    return [p.grad for p in model.parameters()]
+        setattr(module, name, sound)
 
 
-def dp_reference(torch, ds, net, cfg, mesh) -> dict:
+def compare_steps(torch, model, ref_model, got, want, loss, ref_loss,
+                  faults) -> dict:
+    """A multi-rank step (model, its gradients where Adam took them, and
+    got, the scores of every real row) against the one-process step
+    (ref_model, want), and each planted fault's {label: (model, gated)}
+    gradients against the one-process ones."""
+    pairs = [(name, a, b) for (name, a), b in zip(model.named_parameters(),
+                                                  ref_model.parameters())]
+    want_grads = [b.grad for _, _, b in pairs]
+    d_param = {name: (a.detach() - b.detach()).abs().max().item()
+               for name, a, b in pairs}
+    g_max = max(b.grad.abs().max().item() for _, _, b in pairs)
+    rel = grad_distance(torch, [a.grad for _, a, _ in pairs], want_grads)
+    worst = max(d_param, key=d_param.get)
+    return dict(
+        ref_loss=float(ref_loss), loss_close=math.isclose(
+            float(loss), float(ref_loss), rel_tol=STEP_RTOL),
+        n_rows=int(got.shape[0]), d_scores=(got - want).abs().max().item(),
+        scores_close=bool(torch.allclose(got, want, rtol=STEP_RTOL,
+                                         atol=STEP_ATOL)),
+        grad_rel=rel, grads_close=rel <= GRAD_REL, g_max=g_max,
+        d_grad=max((a.grad - b.grad).abs().max().item()
+                   for _, a, b in pairs),
+        grads_apart=sum(int((~torch.isclose(
+            a.grad, b.grad, rtol=GRAD_RTOL,
+            atol=GRAD_ATOL_OF_MAX * g_max)).sum()) for _, a, b in pairs),
+        n_entries=sum(a.numel() for _, a, _ in pairs),
+        zero_grads=[name for name, a, _ in pairs
+                    if not bool(a.grad.ne(0).any())],
+        d_param=d_param[worst], worst_param=worst,
+        d_param_rest=max(v for k, v in d_param.items()
+                         if not k.endswith("posttrans.bias")),
+        faults=[(label, grad_distance(
+            torch, [p.grad for p in m.parameters()], want_grads), gated,
+            largest_share(torch, m, pairs)) for label, (m, gated)
+            in faults.items()])
+
+
+def largest_share(torch, model, pairs) -> tuple:
+    """(name, share) of the parameter that holds the largest share of the
+    squared distance between model's gradients and the one-process ones."""
+    sq = {name: float(((p.grad.double() - b.grad.double()) ** 2).sum())
+          for p, (name, _, b) in zip(model.parameters(), pairs)}
+    name = max(sq, key=sq.get)
+    return name, sq[name] / max(sum(sq.values()), 1e-300)
+
+
+def dp_reference(torch, ds, net, cfg, mesh, path) -> dict:
     """One data-parallel step (dropout and input dropout 0) on this rank's
     shard of the first unshuffled super-batch, and on rank 0 the one-process
     Trainer step from the same weights on the super-batch's graphs packed
     as one batch (with one rank, the rank's own batch), its gradients
-    scaled by the rank count: loss, scores of every real graph, the
-    gradients Adam applied and the weights after it."""
+    scaled by the rank count.  At 2 ranks also the step with
+    MissingCrossRankBackward."""
     import torch.distributed as dist
+    from dgn_tpu_torch import nn as tnn
     from dgn_tpu_torch import run
     from dgn_tpu_torch.graph import pack_graphs
     from dgn_tpu_torch.parallel import DataParallelTrainer, StackedLoader
     from dgn_tpu_torch.train.trainer import Trainer
     net0 = dataclasses.replace(net, dropout=0.0, in_feat_dropout=0.0)
-    model, loss_fn = run.build_model(cfg.task, net0, ds,
-                                     torch.Generator().manual_seed(41))
-    ref_model, _ = run.build_model(
-        cfg.task, dataclasses.replace(net0, bn_axis=None), ds,
-        torch.Generator().manual_seed(41))
-    trainer = DataParallelTrainer(model, loss_fn, cfg.params, mesh,
-                                  task=cfg.task)
     per_dev = max(cfg.params.batch_size // mesh.size, 1)
     n_pad, e_pad = run.pad_geometry(ds.train + ds.val + ds.test, per_dev,
                                     "mxu")
@@ -1825,14 +1935,29 @@ def dp_reference(torch, ds, net, cfg, mesh) -> dict:
                            n_pad=n_pad, e_pad=e_pad, layout="mxu")
     shards, geometry = next(loader.super_batches())
     gb = loader.pack_shard(*shards[mesh.rank], geometry)
-    loss, scores = trainer.train_step(gb)
-    view, all_scores = trainer.gather_shards(gb, scores)
+
+    def dp_step():
+        model, loss_fn = run.build_model(cfg.task, net0, ds,
+                                         torch.Generator().manual_seed(41))
+        trainer = DataParallelTrainer(model, loss_fn, cfg.params, mesh,
+                                      task=cfg.task)
+        # the gradients stay on the parameters after Adam's step
+        loss, scores = trainer.train_step(gb)
+        return model, loss, trainer.gather_shards(gb, scores)
+
+    model, loss, (view, all_scores) = dp_step()
     out = {"loss": float(loss), "ranks": mesh.size,
            "backend": dist.get_backend()}
-    fault = (planted_fault_grads(torch, ds, net0, cfg, mesh, gb)
-             if mesh.size > 1 else None)
+    faults = {}
+    if mesh.size > 1:
+        faults["sync batch norm's sum without its summed backward"] = (
+            with_fault(tnn, "_AllReduceSum", MissingCrossRankBackward,
+                       dp_step)[0], True)
     if mesh.rank != 0:
         return out
+    ref_model, loss_fn = run.build_model(
+        cfg.task, dataclasses.replace(net0, bn_axis=None), ds,
+        torch.Generator().manual_seed(41))
     ref = Trainer(ref_model, loss_fn, cfg.params, task=cfg.task,
                   device=mesh.device)
     # the data-parallel step applies the gradients summed over the ranks,
@@ -1851,74 +1976,157 @@ def dp_reference(torch, ds, net, cfg, mesh) -> dict:
     want = ref_scores[one.graph_mask.to(ref_scores.device)].cpu()
     if mesh.size > 1:
         want = want[torch.argsort(torch.tensor(order))]
-    pairs = [(name, a, b) for (name, a), b in zip(model.named_parameters(),
-                                                  ref_model.parameters())]
-    d_param = {name: (a.detach() - b.detach()).abs().max().item()
-               for name, a, b in pairs}
-    g_max = max(b.grad.abs().max().item() for _, _, b in pairs)
-    d_grad = max((a.grad - b.grad).abs().max().item() for _, a, b in pairs)
-    apart = sum(int((~torch.isclose(a.grad, b.grad, rtol=DP_GRAD_RTOL,
-                                    atol=DP_GRAD_ATOL_OF_MAX * g_max)).sum())
-                for _, a, b in pairs)
-    n_entries = sum(a.numel() for _, a, _ in pairs)
-    rel = grad_distance(torch, [a.grad for _, a, _ in pairs],
-                        [b.grad for _, _, b in pairs])
+    out.update(compare_steps(torch, model, ref_model, got, want, loss,
+                             ref_loss, faults),
+               against=("the same batch" if mesh.size == 1
+                        else "the concatenated batch"))
     if mesh.size > 1:
-        out["fault_rel"] = grad_distance(torch, fault,
-                                         [b.grad for _, _, b in pairs])
-        out["order_f32"], out["order_f64"] = order_sensitivity(
+        f32, f64 = order_sensitivity(
             torch, cfg, ds, dataclasses.replace(net0, bn_axis=None), graphs,
             order)
-    worst = max(d_param, key=d_param.get)
-    out.update(ref_loss=float(ref_loss),
-               d_scores=(got - want).abs().max().item(),
-               scores_close=bool(torch.allclose(got, want, rtol=STEP_RTOL,
-                                                atol=STEP_ATOL)),
-               n_graphs=int(got.shape[0]),
-               d_param=d_param[worst], worst_param=worst,
-               d_param_rest=max(v for k, v in d_param.items()
-                                if not k.endswith("posttrans.bias")),
-               d_grad=d_grad, g_max=g_max, grads_apart=apart,
-               grad_rel=rel, grads_close=rel <= DP_GRAD_REL,
-               n_entries=n_entries)
+        out["notes"] = [
+            f"the one-process step's gradients, the super-batch packed in "
+            f"shard order against descending size: apart by {f32:.3g} of "
+            f"their norm in float32 on the card, {f64:.3g} in float64 on "
+            f"the CPU"]
     return out
 
 
-def dp_timed(torch, trainer, batches, rank: int, n_prof: int = 5) -> dict:
+def ep_shape(gb) -> dict:
+    """A rank's batch geometry: own rows and halo rows (padded, real: the
+    remote nodes its real edges read), the exchange's rows per peer, and
+    the interior and boundary pairs (padded, covered: a pad edge covers a
+    pad pair)."""
+    lay = gb.mxu
+    ni = lay.n_pairs_int
+    cov = lay.pair_covered.cpu()
+    n_loc = gb.halo.n_local
+    src = gb.src.cpu()[gb.edge_mask.cpu()]
+    return {"own": (n_loc, int(gb.node_mask.cpu()[:n_loc].sum())),
+            "halo": (gb.num_nodes_padded - n_loc,
+                     int(src[src >= n_loc].unique().numel())),
+            "s_max": int(gb.halo.send_idx.shape[1]),
+            "pairs_int": (ni, int(cov[:ni].sum())),
+            "pairs_bnd": (lay.n_pairs - ni, int(cov[ni:].sum()))}
+
+
+def ep_reference(torch, ds, net, cfg, mesh, path) -> dict:
+    """One ep step (dropout 0) on this rank's shard of the first unshuffled
+    batch, and on rank 0 the one-process Trainer step from the same
+    weights on the batch's graphs packed as one block-layout batch.  At 2
+    ranks also the steps with MissingCrossRankBackward and with
+    MissingExchangeBackward."""
+    import torch.distributed as dist
+    from dgn_tpu_torch import graph as tgraph
+    from dgn_tpu_torch import nn as tnn
+    from dgn_tpu_torch import run
+    from dgn_tpu_torch.graph import pack_graphs
+    from dgn_tpu_torch.parallel import (EdgeParallelTrainer,
+                                        PartitionedLoader, partition_shards)
+    from dgn_tpu_torch.train.trainer import Trainer
+    net0 = dataclasses.replace(net, dropout=0.0, in_feat_dropout=0.0)
+    node = cfg.task == "sbm"
+    bs = cfg.params.batch_size
+    graphs = next(PartitionedLoader(ds.train, bs, mesh.size).batches())
+    # every rank's shard, as the entry point's loaders cut the batch
+    shards = partition_shards(graphs, mesh.size, g_pad=bs, layout="mxu")
+    gb = shards[mesh.rank]
+
+    def ep_step():
+        model, loss_fn = run.build_model(cfg.task, net0, ds,
+                                         torch.Generator().manual_seed(41))
+        trainer = EdgeParallelTrainer(model, loss_fn, cfg.params, mesh,
+                                      task=cfg.task, node_level=node)
+        # the gradients stay on the parameters after Adam's step
+        loss, scores = trainer.train_step(gb)
+        return model, loss, scores
+
+    model, loss, scores = ep_step()
+    shape = ep_shape(gb)
+    out = {"loss": float(loss), "ranks": mesh.size,
+           "backend": dist.get_backend(), "rank_note": str(shape)}
+    faults = {}
+    if mesh.size > 1:
+        faults["the sums over the ranks, pools and sync batch norm, "
+               "without their summed backward"] = (
+            with_fault(tnn, "_AllReduceSum", MissingCrossRankBackward,
+                       ep_step)[0], True)
+        faults[f"the halo exchange without its reverse backward, halo "
+               f"{shape['halo'][1]} real rows against {shape['own'][1]} own "
+               f"on rank {mesh.rank}"] = (
+            with_fault(tgraph, "_AllToAll", MissingExchangeBackward,
+                       ep_step)[0], path.key in EXCHANGE_FAULT_GATED)
+    if mesh.rank != 0:
+        return out
+    ref_model, loss_fn = run.build_model(
+        cfg.task, dataclasses.replace(net0, bn_axis=None), ds,
+        torch.Generator().manual_seed(41))
+    ref = Trainer(ref_model, loss_fn, cfg.params, task=cfg.task,
+                  device=mesh.device)
+    one = pack_graphs(graphs, mxu_layout=True)
+    ref_loss, ref_scores = ref.train_step(one)
+    mask = one.node_mask if node else one.graph_mask
+    want = ref_scores[mask.to(ref_scores.device)].cpu()
+    if node:
+        got = scores.cpu()[torch.cat([s.node_mask for s in shards])]
+    else:
+        got = scores.cpu()[gb.graph_mask]
+    out.update(compare_steps(torch, model, ref_model, got, want, loss,
+                             ref_loss, faults),
+               against="the same " + ("nodes" if node else "graphs"))
+    return out
+
+
+# per partition: the step's name, its reference, and where its collectives
+# are timed (the attribute wrapped on the trainer, or on the graph module)
+PARTITIONS = {
+    "dp": ("data-parallel", DP_PATHS, dp_reference, "trainer",
+           "_all_reduce", "all-reduce"),
+    "ep": ("edge-parallel", EP_PATHS, ep_reference, "graph", "exchange",
+           "halo exchanges"),
+}
+
+
+def timed_steps(torch, trainer, batches, rank: int, owner, attr: str,
+                n_prof: int = 5) -> dict:
     """The trainer's step as shipped over MIN_STEPS steps of this rank's
-    shards: median ms (the first 3 dropped), host ms of each step's
-    all-reduces (the trainer's _all_reduce wrapped for these steps,
-    CUDA-synchronised around each call), then on rank 0 the device
-    activity of n_prof profiled steps (every rank steps alongside)."""
+    shards: median, min and max ms (the first 3 dropped), host ms and
+    calls of each step's collectives (owner.attr wrapped for these steps,
+    CUDA-synchronised around each call), peak MiB, then on rank 0 the
+    device activity of n_prof profiled steps (every rank steps
+    alongside)."""
     batches = batches * math.ceil(MIN_STEPS / len(batches))
     torch.cuda.reset_peak_memory_stats()
-    comm, times = [], []
-    reduce = trainer._all_reduce
+    comm, calls, times = [], [], []
+    sound = getattr(owner, attr)
 
-    def timed_reduce(tensors, mean=True):
+    def timed_call(*args, **kwargs):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        reduce(tensors, mean)
+        result = sound(*args, **kwargs)
         torch.cuda.synchronize()
         comm[-1] += (time.perf_counter() - t) * 1e3
+        calls[-1] += 1
+        return result
 
-    trainer._all_reduce = timed_reduce
+    setattr(owner, attr, timed_call)
     try:
         for gb in batches:
             comm.append(0.0)
+            calls.append(0)
             torch.cuda.synchronize()
             t = time.perf_counter()
             loss, _ = trainer.train_step(gb)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
             if not math.isfinite(float(loss)):
-                fail("a data-parallel step gave a non-finite loss")
+                fail("a multi-rank step gave a non-finite loss")
     finally:
-        del trainer._all_reduce
+        setattr(owner, attr, sound)
     out = {"median_ms": statistics.median(times[3:]),
            "min_ms": min(times[3:]), "max_ms": max(times[3:]),
            "steps": len(times) - 3,
-           "comm_ms": statistics.median(comm[3:]),
+           "comm_ms": statistics.median(comm[3:]), "calls": calls[-1],
            "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
     run = lambda: [trainer.train_step(gb) for gb in batches[:n_prof]]
     if rank != 0:
@@ -1931,16 +2139,18 @@ def dp_timed(torch, trainer, batches, rank: int, n_prof: int = 5) -> dict:
     return out
 
 
-def dp_rank(rank: int, n: int, init_method: str, key: str, backend: str):
-    """One rank of a data-parallel path on cuda:0: joins the group, trains
+def parallel_rank(rank: int, n: int, init_method: str, partition: str,
+                  key: str, backend: str):
+    """One rank of a multi-rank path on cuda:0: joins the group, trains
     the path's config for EPOCHS through the port's rank entry
-    (run._run_rank, what `--n_devices` runs in each rank) with every
-    launch counter at 0 just before and read just after, then the
-    reference step (dp_reference) and the timed steps (dp_timed)."""
+    (run._run_rank with --partition, what `--n_devices N` runs in each
+    rank) with every launch counter at 0 just before and read just after,
+    then the partition's reference step and the timed steps."""
     import io
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(REPO))
+    from dgn_tpu_torch import graph as tgraph
     from dgn_tpu_torch import run
     from dgn_tpu_torch.config import config_from_args
     from dgn_tpu_torch.parallel.mesh import make_mesh
@@ -1955,9 +2165,11 @@ def dp_rank(rank: int, n: int, init_method: str, key: str, backend: str):
             fail(f"{key}: the group is {dist.get_backend()} with "
                  f"{dist.get_world_size()} ranks, not {backend} with {n}")
         mesh = make_mesh(n, device=device)
-        path = next(p for p in DP_PATHS if p.key == key)
+        _, paths, reference, owner, attr, _ = PARTITIONS[partition]
+        path = next(p for p in paths if p.key == key)
         cfg, args = config_from_args(path_argv(path) + [
-            "--epochs", str(EPOCHS), "--device", DEVICE])
+            "--epochs", str(EPOCHS), "--device", DEVICE, "--partition",
+            partition])
         captured, prepare = [], run.prepare
         run.prepare = lambda *a, **k: captured.append(prepare(*a, **k)) \
             or captured[-1]
@@ -1978,44 +2190,52 @@ def dp_rank(rank: int, n: int, init_method: str, key: str, backend: str):
         units = {split: len(ld) for split, ld in loaders.items()}
         steps = EPOCHS * units["train"]
         evals = units["val"] + units["test"]
-        # a StackedLoader keeps no eval cache: every forward pass builds
+        # neither multi-rank loader keeps an eval cache: every forward
+        # pass builds
         forwards = steps + EPOCHS * evals + units["train"] + evals
         n_ext = path.extremes_layers * towers_of(model.cfg)
         expected = {"build_pair_adjacency":
                     adjacency_builds(model.cfg, False) * forwards,
                     "segment_extremes_fwd": n_ext * forwards,
                     "segment_extremes_bwd": n_ext * steps}
-        ref = dp_reference(torch, ds, model.cfg, cfg, mesh)
-        timing = dp_timed(torch, trainer, list(loaders["train"]), rank)
+        ref = reference(torch, ds, model.cfg, cfg, mesh, path)
+        timing = timed_steps(
+            torch, trainer, list(loaders["train"]), rank,
+            trainer if owner == "trainer" else tgraph, attr)
+        train = loaders["train"]
+        where = (f"train pads (n, e, pairs) "
+                 f"{(train.n_pad, train.e_pad, train.pair_pad)}"
+                 if partition == "dp" else
+                 f"halo exchange over {dist.get_backend(mesh.group)} on "
+                 f"CUDA tensors")
         return {"rank": rank, "report": report, "launches": launches,
                 "expected": expected, "units": units, "wall_s": wall,
                 "run_peak_mib": peak, "ref": ref, "timing": timing,
                 "text": buf.getvalue() if rank == 0 else "",
-                "lr": cfg.params.init_lr,
-                "pads": (loaders["train"].n_pad, loaders["train"].e_pad,
-                         loaders["train"].pair_pad)}
+                "lr": cfg.params.init_lr, "where": where}
     finally:
         dist.destroy_process_group()
 
 
-def dp_phase() -> dict:
-    """Each DP_PATHS config at full width through DP_VARIANTS: 1 NCCL rank
-    and 2 gloo ranks on cuda:0, spawned with a deadline; every rank's
-    launches must be what its loaders imply, rank 0's data-parallel step
-    must equal its one-process reference step (loss, scores and gradients;
-    the weights after Adam printed), at 2 ranks the gradients of a planted
-    fault (MissingCrossRankBackward) must fail that gradient check, and
-    the ranks' losses must agree.
-    Returns {path-variant/rank r: launches}."""
+def parallel_phase(partition: str) -> dict:
+    """The partition's paths at full width through their VARIANTS, spawned
+    with a deadline: every rank's launches must be what its loaders imply,
+    rank 0's step must equal the one-process step (loss, scores and
+    gradients, no parameter's gradient 0; the weights after Adam printed),
+    at 2 ranks each gated planted fault (MissingCrossRankBackward, and on
+    ep-hiv MissingExchangeBackward) must fail that gradient check, and the
+    ranks' losses must agree.  Returns {path-variant/rank r: launches}."""
     from dgn_tpu_torch.parallel.launch import spawn
+    name, paths, _, _, _, comm = PARTITIONS[partition]
     out = {}
-    for path in DP_PATHS:
-        for backend, n in DP_VARIANTS:
+    for path in paths:
+        for backend, n in VARIANTS[path.key]:
             key = f"{path.key}-{backend}{n}"
             t0 = time.time()
             try:
-                ranks = spawn(dp_rank, n, (path.key, backend),
-                              timeout=DP_TIMEOUT)
+                ranks = spawn(parallel_rank, n, (partition, path.key,
+                                                 backend),
+                              timeout=PARALLEL_TIMEOUT)
             except RuntimeError as e:
                 fail(f"{key}: {e}")
             r0 = ranks[0]
@@ -2039,56 +2259,72 @@ def dp_phase() -> dict:
                      f"{[r['ref']['loss'] for r in ranks]}")
             t = r0["timing"]
             print(f"path {key}: {n} {backend} rank(s) on cuda:0, "
-                  f"{time.time() - t0:.1f}s (entry run {r0['wall_s']:.1f}s), "
-                  f"train pads (n, e, pairs) {r0['pads']}, packed shards per "
-                  f"rank {r0['units']}, final test "
-                  f"{final['test']}, launches per rank "
-                  f"{[r['launches'] for r in ranks]} (expected "
+                  f"{r0['where']}, {time.time() - t0:.1f}s (entry run "
+                  f"{r0['wall_s']:.1f}s), packed shards per rank "
+                  f"{r0['units']}, final test {final['test']}, launches per "
+                  f"rank {[r['launches'] for r in ranks]} (expected "
                   f"{r0['expected']}), run peak "
                   f"{[round(r['run_peak_mib'], 1) for r in ranks]} MiB")
-            print(f"  data-parallel step vs the one-process step on "
-                  f"{'the same batch' if n == 1 else 'the concatenated batch'}"
-                  f" ({ref['n_graphs']} graphs, dropout 0): loss "
+            if "rank_note" in ref:
+                print(f"  shard geometry of the first batch per rank (own "
+                      f"and halo rows (padded, real), s_max, interior and "
+                      f"boundary pairs (padded, covered)): "
+                      + "; ".join(f"rank {r['rank']} {r['ref']['rank_note']}"
+                                  for r in ranks))
+            print(f"  {name} step vs the one-process step on "
+                  f"{ref['against']} ({ref['n_rows']} rows, dropout 0): loss "
                   f"{ref['loss']:.6f} vs {ref['ref_loss']:.6f} (|diff| "
                   f"{abs(ref['loss'] - ref['ref_loss']):.3g}), max |score "
                   f"diff| {ref['d_scores']:.3g} (rtol {STEP_RTOL:g}, atol "
                   f"{STEP_ATOL:g}), gradients apart by {ref['grad_rel']:.3g}"
-                  f" of their norm (at most {DP_GRAD_REL:g}; max |diff| "
+                  f" of their norm (at most {GRAD_REL:g}; max |diff| "
                   f"{ref['d_grad']:.3g}, max |grad| {ref['g_max']:.3g}, "
                   f"{ref['grads_apart']} of {ref['n_entries']} entries "
-                  f"outside rtol {DP_GRAD_RTOL:g} / atol "
-                  f"{DP_GRAD_ATOL_OF_MAX:g} x max |grad|), max |param "
-                  f"diff after Adam| {ref['d_param']:.3g} "
-                  f"({ref['worst_param']}; {ref['d_param_rest']:.3g} without "
-                  f"the posttrans biases; lr {r0['lr']:g})")
-            if n > 1:
-                print(f"  planted fault (sync batch norm's sum without its "
-                      f"summed backward): gradients apart by "
-                      f"{ref['fault_rel']:.3g} of their norm (must exceed "
-                      f"{DP_GRAD_REL:g})")
-                if not ref["fault_rel"] > DP_GRAD_REL:
+                  f"outside rtol {GRAD_RTOL:g} / atol {GRAD_ATOL_OF_MAX:g} x "
+                  f"max |grad|), parameters with a zero gradient "
+                  f"{ref['zero_grads']}, max |param diff after Adam| "
+                  f"{ref['d_param']:.3g} ({ref['worst_param']}; "
+                  f"{ref['d_param_rest']:.3g} without the posttrans biases; "
+                  f"lr {r0['lr']:g})")
+            for what, rel, gated, (leaf, share) in ref["faults"]:
+                print(f"  planted fault ({what}): gradients apart by "
+                      f"{rel:.3g} of their norm "
+                      + (f"(must exceed {GRAD_REL:g})" if gated
+                         else "(printed, not held)")
+                      + f", {share:.3g} of the squared distance in {leaf}")
+                if gated and not rel > GRAD_REL:
                     fail(f"{key}: the gradient check does not see a step "
-                         "that misses the other ranks' batch-norm terms")
-                print(f"  the one-process step's gradients, the super-batch "
-                      f"packed in shard order against descending size: "
-                      f"apart by {ref['order_f32']:.3g} of their norm in "
-                      f"float32 on the card, {ref['order_f64']:.3g} in "
-                      f"float64 on the CPU")
+                         f"with {what}")
+            for note in ref.get("notes", ()):
+                print(f"  {note}")
             medians = [round(r["timing"]["median_ms"], 3) for r in ranks]
             print(f"  train step as shipped (rank 0): median "
                   f"{t['median_ms']:.3f} ms over {t['steps']} steps (min "
                   f"{t['min_ms']:.3f}, max {t['max_ms']:.3f}), busy "
                   f"{t['busy_ms']:.3f} ms/step in {t['ops']:.0f} device "
-                  f"ops/step, all-reduce {t['comm_ms']:.3f} ms/step (host, "
-                  f"synchronised), peak {t['peak_mib']:.1f} MiB; per rank "
-                  f"median {medians} ms, all-reduce "
+                  f"ops/step, {comm} {t['comm_ms']:.3f} ms/step in "
+                  f"{t['calls']} calls (host, synchronised), peak "
+                  f"{t['peak_mib']:.1f} MiB; per rank median {medians} ms, "
+                  f"{comm} "
                   f"{[round(r['timing']['comm_ms'], 3) for r in ranks]} ms")
-            if not (math.isclose(ref["loss"], ref["ref_loss"],
-                                 rel_tol=STEP_RTOL)
-                    and ref["scores_close"] and ref["grads_close"]):
-                fail(f"{key}: the data-parallel step disagrees with the "
+            if not (ref["loss_close"] and ref["scores_close"]
+                    and ref["grads_close"] and not ref["zero_grads"]):
+                fail(f"{key}: the {name} step disagrees with the "
                      "one-process step")
     return out
+
+
+def scaling_phase() -> None:
+    """tools/scaling.py on the card: dp and ep at 1 and 2 ranks (2 gloo
+    ranks sharing cuda:0), the flagship ZINC net at batch 128; its rows
+    carry no predicted efficiency (no link bandwidth is measured here)."""
+    from dgn_tpu_torch.tools import scaling
+    rows = scaling.run_scaling(("dp", "ep"), (1, 2), batch=128, hidden=45,
+                               L=4, steps=10,
+                               emit=lambda s: print(f"scaling row: {s}"))
+    for (part, n), row in rows.items():
+        if not (math.isfinite(row["step_ms"]) and row["step_ms"] > 0):
+            fail(f"scaling {part} at {n} ranks: step {row['step_ms']} ms")
 
 
 DENSE_GRAPHS = 128
@@ -2271,8 +2507,14 @@ def main() -> None:
     launches.update(real_launches)
     nets.update(real_nets)
     t = time.time()
-    launches.update(dp_phase())
+    launches.update(parallel_phase("dp"))
     print(f"dp phase: {time.time() - t:.1f}s")
+    t = time.time()
+    launches.update(parallel_phase("ep"))
+    print(f"ep phase: {time.time() - t:.1f}s")
+    t = time.time()
+    scaling_phase()
+    print(f"scaling phase: {time.time() - t:.1f}s")
     dense_phase(torch, np)
     # `launches` is the kernel's count on the path whose shape the entry
     # timed ("path"); the counts of every path stand beside it (COLLAB's
@@ -2293,8 +2535,8 @@ def main() -> None:
                 fail(f"kernel {counter} was launched {n} times on the "
                      f"{path.key} path, which must not launch it")
         for key, n in kern["launches_by_path"].items():
-            path = next((p for p in DP_PATHS if key.startswith(p.key + "-")),
-                        None)
+            path = next((p for p in DP_PATHS + EP_PATHS
+                         if key.startswith(p.key + "-")), None)
             runs = path is not None and (
                 counter == "build_pair_adjacency" or path.extremes_layers)
             if runs and n <= 0:

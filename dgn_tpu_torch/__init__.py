@@ -6,9 +6,10 @@ configs (ZINC, SBM PATTERN, CIFAR10 superpixels, HIV, PCBA) on the block
 or the flat layout, and COLLAB link prediction; the TPU kernels on the
 block layout's paths are hand-written CUDA kernels: the adjacency-block
 build (`ops/csrc/adjacency.cu`) and the per-destination max/min with its
-backward (`ops/csrc/extremes.cu`).  It trains data-parallel over
-torch.distributed (`parallel/`, `--n_devices`, `--multihost`) and carries
-the dense research path (`dense/`).  Entry point: `python -m
+backward (`ops/csrc/extremes.cu`).  It trains data-parallel or
+edge-partitioned over torch.distributed (`parallel/`, `--n_devices`,
+`--partition`, `--multihost`) and carries the dense research path
+(`dense/`).  Entry point: `python -m
 dgn_tpu_torch.run`.
 Importing the package builds nothing and touches no device.
 """

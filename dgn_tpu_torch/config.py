@@ -6,13 +6,13 @@ dataclass field names are the schema, unknown keys are rejected, and every
 CLI flag that is given overrides the JSON value.  The flags are those of the
 reference run script, plus `--device`.  The multi-device flags are
 dgn_tpu's (dgn_tpu/config.py:238-258), with its defaults, mapped onto one
-process per GPU (parallel/mesh.py): `--n_devices N` trains data-parallel
-on N ranks of one host (`cuda:0..N-1`, or N gloo ranks on the CPU with
+process per GPU (parallel/mesh.py): `--n_devices N` trains on N ranks of
+one host (`cuda:0..N-1`, or N gloo ranks on the CPU with
 `--device cpu`); `--multihost` with `--coordinator_address`,
 `--num_processes` and `--process_id` makes this process one rank of a
 larger world (the torchrun environment when they are omitted);
-`--partition dp` is data parallelism, and `ep` (edge parallelism) raises
-NotImplementedError (ROADMAP A11b).
+`--partition dp` is data parallelism, `ep` edge parallelism (one batch's
+nodes and edges cut across the ranks, parallel/halo.py).
 """
 from __future__ import annotations
 
@@ -205,14 +205,15 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--seeds", type=str, default=None,
                     help="comma-separated seeds, e.g. 41,42,43,44: one run "
                          "per seed and their mean ± std")
-    # data parallelism (parallel/): dgn_tpu's flags and defaults
+    # data and edge parallelism (parallel/): dgn_tpu's flags and defaults
     ap.add_argument("--n_devices", type=int, default=None,
-                    help="data-parallel ranks (default 1): rank r on "
-                         "cuda:r, or gloo ranks with --device cpu")
+                    help="ranks (default 1): rank r on cuda:r, or gloo "
+                         "ranks with --device cpu")
     ap.add_argument("--partition", type=str, default="dp",
                     choices=["dp", "ep"],
-                    help="dp = batch sharding; ep (edge-partitioned "
-                         "graphs) is not ported")
+                    help="dp = batch sharding; ep = each batch's "
+                         "nodes and edges cut across the ranks, with a "
+                         "halo exchange per layer")
     ap.add_argument("--multihost", action="store_true",
                     help="join a multi-host world (torch.distributed) as "
                          "one rank; torchrun's environment when the three "

@@ -15,8 +15,18 @@ placed so no graph straddles a 128-node block, edges are chunked per
 (`ops/mxu.py`).  The flat layout's edge pipeline (offsets, the (dst, src)
 sort, masks, normalisers, in-degrees) runs in the port's native packer
 (`runtime/packer.cpp`) when it is built, with the same arrays bit for bit
-as the numpy path.  The halo spec of dgn_tpu's edge-parallel layout is not
-ported.
+as the numpy path.
+
+Edge-partitioned execution (parallel/halo.py) carries a `HaloSpec` on each
+rank's batch: the rank's node axis is [own | halo], the halo rows copies
+of remote nodes that its edges read.  `halo_pull` fetches them from their
+owners with one boundary-only all-to-all (`_AllToAll`, whose backward is
+the reverse all-to-all), or, for a spec without an exchange plan, an
+all-gather (`_AllGather`, whose backward sums the cotangents over the
+ranks and keeps this rank's rows).  Gloo's all-to-all takes CUDA tensors
+(chip_smoke.py's ep phase runs it so on an H100); its all-gather takes
+CPU tensors, so `_gather_all` stages a CUDA tensor through the host over
+gloo.
 """
 from __future__ import annotations
 
@@ -31,6 +41,122 @@ _TILE = 128
 
 def _move(x, device):
     return None if x is None else x.to(device)
+
+
+@dataclasses.dataclass
+class HaloSpec:
+    """Where each halo slot of an edge-partitioned rank's batch lives
+    (dgn_tpu/graph.py:39-61).
+
+    The rank's node axis is [0, n_local) its own nodes (padding included)
+    and [n_local, n_local + H) the halo slots.  halo_shard / halo_local:
+    [H] int32 owner rank and owner-local row of each slot.  The exchange
+    plan (None: the all-gather fallback): send_idx [P, S] int32, the own
+    rows this rank ships to each rank q (row q), and recv_perm [H] int32,
+    each halo slot's row in the [P * S] receive buffer.  group is the
+    process group of the ranks (the trainer sets it; None: the world)."""
+    halo_shard: torch.Tensor
+    halo_local: torch.Tensor
+    send_idx: Optional[torch.Tensor] = None
+    recv_perm: Optional[torch.Tensor] = None
+    n_local: int = 0
+    axis: str = "ep"
+    group: Optional[object] = None
+
+    def to(self, device) -> "HaloSpec":
+        return dataclasses.replace(self, **{
+            name: _move(getattr(self, name), device)
+            for name in ("halo_shard", "halo_local", "send_idx",
+                         "recv_perm")})
+
+
+def exchange(x: torch.Tensor, group) -> torch.Tensor:
+    """All-to-all of x [P * S, ...] in P equal row blocks: block q goes to
+    rank q, and the block from rank p lands at block p."""
+    import torch.distributed as dist
+    src = x.detach().contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out
+
+
+def _gather_all(x: torch.Tensor, group) -> torch.Tensor:
+    """[P * rows, ...]: every rank's x in rank order (bool as uint8)."""
+    import torch.distributed as dist
+    staged = x.is_cuda and dist.get_backend(group) == "gloo"
+    src = x.detach().cpu() if staged else x.detach().contiguous()
+    if src.dtype == torch.bool:
+        return _gather_all(src.to(torch.uint8), group).to(
+            device=x.device, dtype=torch.bool)
+    parts = [torch.empty_like(src)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts)
+    return out.to(x.device) if staged else out
+
+
+def _sum_all(x: torch.Tensor, group) -> torch.Tensor:
+    """x summed over the ranks."""
+    import torch.distributed as dist
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """`exchange` as a differentiable op: its adjoint is the reverse
+    all-to-all, which for equal blocks is the same exchange."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return exchange(grad.contiguous(), ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    """Every rank's x concatenated in rank order; the adjoint sums each
+    rank's cotangent of the whole over the ranks and keeps this rank's
+    block (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        ctx.group, ctx.rows = group, x.shape[0]
+        ctx.rank = dist.get_rank(group)
+        return _gather_all(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = _sum_all(grad, ctx.group)
+        return total[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows], None
+
+
+def halo_pull(own: torch.Tensor, spec: HaloSpec) -> torch.Tensor:
+    """Fresh halo rows [H, ...] from their owners (dgn_tpu/graph.py:64-85):
+    the rows each rank references, gathered per rank ([P, S, ...]), one
+    all-to-all, then routed into the halo slots by recv_perm.  Without an
+    exchange plan, an all-gather of every rank's own rows.  Differentiable:
+    the gradient of a halo row flows back to its owner's row."""
+    import torch.distributed as dist
+    group = spec.group
+    if spec.send_idx is None:
+        p = dist.get_world_size(group)
+        allh = _AllGather.apply(own.contiguous(), group)
+        allh = allh.reshape((p, spec.n_local) + tuple(own.shape[1:]))
+        return allh[spec.halo_shard.long(), spec.halo_local.long()]
+    send = own.index_select(0, spec.send_idx.reshape(-1).long())
+    recv = _AllToAll.apply(send, group)
+    return recv.index_select(0, spec.recv_perm.long())
+
+
+def halo_refresh(h: torch.Tensor, spec: HaloSpec) -> torch.Tensor:
+    """h with its halo rows fetched anew: [own | fresh halo]."""
+    own = h[:spec.n_local]
+    return torch.cat([own, halo_pull(own, spec)], dim=0)
 
 
 @dataclasses.dataclass
@@ -67,6 +193,8 @@ class GraphBatch:
     # per-forward EdgeContext (ops/aggregators.py), attached by the model or
     # by the trainer's eval cache
     edge_ctx: Optional[object] = None
+    # edge-partitioned execution: this rank's halo (parallel/halo.py)
+    halo: Optional[HaloSpec] = None
 
     @property
     def num_nodes_padded(self) -> int:

@@ -58,10 +58,21 @@ stage rounds as dgn_tpu's does (ops/mxu.py, ops/aggregators.py), the
 per-edge path's gathers of h at src and dst included.  The flat layout,
 the pretrans and posttrans and the virtual node stay float32.
 
-bn_axis (the config's, "dp" under data parallelism) makes every layer's
-and tower's batch norm and the virtual node's a sync batch norm over the
-ranks of the mesh bound to the model (nn.MaskedBatchNorm, nn.bind_mesh),
-as dgn_tpu/layers/dgn.py:173-489 threads it.
+bn_axis (the config's, "dp" under data parallelism, "ep" under edge
+parallelism) makes every layer's and tower's batch norm and the virtual
+node's a sync batch norm over the ranks of the mesh bound to the model
+(nn.MaskedBatchNorm, nn.bind_mesh), as dgn_tpu/layers/dgn.py:173-489
+threads it.
+
+Edge-partitioned batches (gb.halo set, parallel/halo.py): on the block
+layout with the interior/boundary pair split (ep_fused_layout), a
+decomposed layer or tower pulls its own halo (graph.halo_pull) inside the
+edge stage: the simple layer hands (own, halo) rows to the aggregators,
+the complex layer and each tower (g_own, g_halo) = (own @ W1, halo @ W1)
+with q on the own rows and 0 on the halo rows (_ep_pretrans_parts), so
+the interior pair products read nothing of the exchange.  Otherwise the
+model refreshes the halo before each layer (models/dgn_net.py).  The
+virtual node sums its per-graph pools over the ranks.
 """
 from __future__ import annotations
 
@@ -70,7 +81,8 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from ..graph import GraphBatch
+from .. import nn as tnn
+from ..graph import GraphBatch, halo_pull
 from ..nn import MLP, FCLayer, LinearParams, MaskedBatchNorm, dropout
 from ..ops import aggregators as agg_ops
 from ..ops import mxu
@@ -85,6 +97,28 @@ def _linear_pretrans_parts(kernel, bias, h, e):
     f = h.shape[-1]
     c_edge = None if e is None else e @ kernel[2 * f:]
     return h @ kernel[:f], h @ kernel[f:2 * f] + bias, c_edge
+
+
+def ep_fused_layout(gb: GraphBatch) -> bool:
+    """Whether gb is an edge-partitioned rank's block layout with the
+    interior/boundary pair split: a decomposed layer then pulls its own
+    halo, and the model must not refresh it (dgn_tpu/layers/dgn.py:96-103)."""
+    return (gb.halo is not None and gb.mxu is not None
+            and gb.mxu.n_pairs_int is not None)
+
+
+def _ep_pretrans_parts(gb: GraphBatch, kernel, bias, h, e):
+    """_linear_pretrans_parts on an edge-partitioned rank
+    (dgn_tpu/layers/dgn.py:106-122): g as (own @ W1, fresh halo @ W1), q
+    on the own rows and 0 on the halo rows (theirs are never read)."""
+    f = h.shape[-1]
+    own = h[:gb.halo.n_local]
+    g_node = (own @ kernel[:f], halo_pull(own, gb.halo) @ kernel[:f])
+    q_own = own @ kernel[f:2 * f] + bias
+    q_node = torch.cat([q_own, q_own.new_zeros(
+        (h.shape[0] - own.shape[0], q_own.shape[-1]))])
+    c_edge = None if e is None else e @ kernel[2 * f:]
+    return g_node, q_node, c_edge
 
 
 def _fused_posttrans(kernel, bias, h_in, h_agg, gb: GraphBatch,
@@ -209,8 +243,12 @@ class DGNLayerSimple(_DGNLayer):
                 e: Optional[torch.Tensor] = None) -> torch.Tensor:
         ctx = _edge_context(gb, self.aggregators, True, self.compute_dtype)
         if ctx.decomposed:
+            g_in = h
+            if ep_fused_layout(gb):
+                own = h[:gb.halo.n_local]
+                g_in = (own, halo_pull(own, gb.halo))
             agg = agg_ops.aggregate_decomposed(
-                self.aggregators, ctx, h, None, h, layout=gb.mxu,
+                self.aggregators, ctx, g_in, None, h, layout=gb.mxu,
                 compute_dtype=self.compute_dtype)
         else:
             agg = agg_ops.aggregate(self.aggregators, ctx,
@@ -249,8 +287,10 @@ class DGNLayerComplex(_DGNLayer):
         ctx = _edge_context(gb, self.aggregators, self.pretrans_layers == 1,
                             self.compute_dtype)
         if ctx.decomposed and self.pretrans_layers == 1:
-            g_node, q_node, c_edge = _linear_pretrans_parts(
-                self.pretrans.kernel, self.pretrans.bias, h, e)
+            k, b = self.pretrans.kernel, self.pretrans.bias
+            g_node, q_node, c_edge = (
+                _ep_pretrans_parts(gb, k, b, h, e) if ep_fused_layout(gb)
+                else _linear_pretrans_parts(k, b, h, e))
             agg = agg_ops.aggregate_decomposed(
                 self.aggregators, ctx, g_node, q_node, h, c_edge=c_edge,
                 layout=gb.mxu, compute_dtype=self.compute_dtype)
@@ -356,16 +396,21 @@ class VirtualNode(nn.Module):
     def forward(self, gb: GraphBatch, h: torch.Tensor, vn_h: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
         g = gb.num_graphs_padded
-        pool = (mxu.graph_pool_sum(h, gb.mxu, g) if gb.mxu is not None
+        blocks = gb.mxu is not None and gb.mxu.local_graph is not None
+        pool = (mxu.graph_pool_sum(h, gb.mxu, g) if blocks
                 else segment_sum(h, gb.node_graph, g, gb.node_mask))
         if self.vn_type != "sum":
             n = gb.n_nodes.to(pool.dtype)[:, None]
             pool = torch.where(n > 0, pool / n.clamp_min(1.0), 0.0)
             if self.vn_type == "logsum":
                 pool = pool * torch.log(n.clamp_min(1.0))
+        if gb.halo is not None:
+            # partial pools of each rank's nodes (the division by the
+            # replicated n_nodes commutes with the sum)
+            pool = tnn._AllReduceSum.apply(pool, gb.halo.group)
         vn_tmp = self.fc_layer(vn_h + pool, gb.graph_mask, generator)
         vn_h = vn_h + vn_tmp if self.residual else vn_tmp
-        if gb.mxu is None:
+        if not blocks:
             return vn_h, h + gather(vn_h, gb.node_graph)
         return vn_h, h + mxu.graph_broadcast(vn_h, gb.node_graph,
                                              gb.node_mask)

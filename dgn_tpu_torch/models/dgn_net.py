@@ -44,8 +44,12 @@ accumulation (ops/mxu.py).  None and "float32" run float32 throughout.
 load; `DGNModel` raises NotImplementedError for any value the port does not
 cover yet (a compute_dtype other than float32 and bfloat16, which the
 adjacency kernel cannot write) instead of silently running something
-else.  bn_axis ("dp") makes every batch norm a sync batch norm over the
-ranks of the mesh that nn.bind_mesh gives the model (parallel/dp.py).
+else.  bn_axis ("dp", "ep") makes every batch norm a sync batch norm over
+the ranks of the mesh that nn.bind_mesh gives the model (parallel/dp.py,
+parallel/halo.py).  On an edge-partitioned rank's batch (gb.halo) the
+halo rows are refreshed before each layer unless the layer pulls them
+itself (dgn_tpu/models/dgn_net.py:167-186), and the readouts combine the
+ranks' partial pools (models/readout.py).
 """
 from __future__ import annotations
 
@@ -55,8 +59,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..graph import GraphBatch
-from ..layers.dgn import VirtualNode, make_dgn_layer
+from ..graph import GraphBatch, halo_refresh
+from ..layers.dgn import VirtualNode, ep_fused_layout, make_dgn_layer
 from ..nn import Embedding, Linear, MLPReadout, dropout
 from ..ops import aggregators as agg_ops
 from ..ops import scalers as scaler_ops
@@ -254,7 +258,14 @@ class DGNModel(nn.Module):
             h = h + self.embedding_pos_enc(pe)
         e = self.embedding_e(gb.edge_feat) if cfg.edge_feat else None
         vn_h = h.new_zeros((gb.num_graphs_padded, cfg.hidden_dim))
+        # an edge-partitioned batch: a decomposed layer on the split block
+        # layout pulls its own halo (layers/dgn.py); otherwise the halo
+        # rows are fetched anew before each layer
+        refresh = gb.halo is not None and not (ep_fused_layout(gb)
+                                               and decomposes(cfg))
         for i in range(cfg.L):
+            if refresh:
+                h = halo_refresh(h, gb.halo)
             h = getattr(self, f"layer_{i}")(gb, h, dropout_generator, e)
             if self.use_vn and i < cfg.L - 1:
                 vn_h, h = getattr(self, f"virtual_node_{i}")(

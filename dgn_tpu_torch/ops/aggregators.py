@@ -56,7 +56,14 @@ per-edge path the weighted-sum scatter.  The weight totals, the extremes
 round, and the flat layout rounds nothing, as in dgn_tpu.  The adjacency
 blocks come in the dtype build_edge_context's adj_dtype gave them.
 
-Not ported: the edge-partitioned split.
+Edge-partitioned split (dgn_tpu/ops/aggregators.py:445-530): g_node may
+arrive as (g_own, g_halo), a rank's own rows and its freshly exchanged
+halo rows (layers/dgn.py).  On an edge-partitioned block layout
+(layout.n_pairs_int set) without var/std, the interior pairs multiply own
+blocks and the boundary pairs halo blocks, and their two segment sums over
+pair_dst add up: the interior products need nothing from the exchange.
+max/min read ge from [g_own | g_halo].  Anything else (var/std, or no such
+layout) concatenates [g_own | g_halo] and runs as above.
 """
 from __future__ import annotations
 
@@ -274,15 +281,19 @@ def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
     """All aggregators over msg_e = g[src_e] + q[dst_e] (+ c_edge[e]),
     concatenated on the feature axis -> [N, len(names) * F].  q_node and
     c_edge may be None (0).  layout None: the flat layout, where
-    compute_dtype is ignored."""
+    compute_dtype is ignored.  g_node may be (g_own, g_halo), an
+    edge-partitioned rank's own and halo rows (module docstring)."""
     names = list(names)
     cd = compute_dtype if layout is not None else None
     if not ctx.decomposed:
         raise ValueError("a per-edge edge context holds no weight families: "
                          "build it with decomposed=True")
-    f = g_node.shape[-1]
     n = ctx.num_nodes
     need_sq = any(nm in ("var", "std") for nm in names)
+    split = isinstance(g_node, tuple)
+    if split and (layout is None or layout.n_pairs_int is None or need_sq):
+        g_node, split = torch.cat(g_node, dim=0), False
+    f = (g_node[0] if split else g_node).shape[-1]
     full_keys = tuple(_unique(k for nm in names for k in _scatter_keys(nm)))
     if full_keys != ctx.adj_keys:
         raise ValueError(f"edge context holds adjacency blocks {ctx.adj_keys}"
@@ -295,16 +306,29 @@ def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
     # the per-edge values ge: for max/min, and for the scatter branch
     ge = None
     if not use_adj or "max" in names or "min" in names:
-        ge = mxu.gather(g_node, ctx.src, cd)
+        ge = mxu.gather(torch.cat(g_node, dim=0) if split else g_node,
+                        ctx.src, cd)
         if c_edge is not None:
             ge = ge + c_edge
 
     S = {}
     if full_keys and use_adj:
         nb = layout.n_node_blocks
-        gp = g_node.reshape(nb, mxu.TILE, f)[layout.pair_src]   # [P, T, F]
-        T = mxu.pair_adj_matmul(ctx.adj, gp, cd)                 # [P, K, T, F]
-        Sb = segment_sum(T, layout.pair_dst, nb)                 # [nb, K, T, F]
+        if split:
+            # interior pairs read own blocks, boundary pairs halo blocks
+            ni, nbo = layout.n_pairs_int, layout.n_own_blocks
+            g_own, g_halo = g_node
+            src = layout.pair_src.long()
+            gp_i = g_own.reshape(nbo, mxu.TILE, f)[src[:ni]]
+            gp_b = g_halo.reshape(nb - nbo, mxu.TILE, f)[src[ni:] - nbo]
+            Sb = (segment_sum(mxu.pair_adj_matmul(ctx.adj[:ni], gp_i, cd),
+                              layout.pair_dst[:ni], nb)
+                  + segment_sum(mxu.pair_adj_matmul(ctx.adj[ni:], gp_b, cd),
+                                layout.pair_dst[ni:], nb))
+        else:
+            gp = g_node.reshape(nb, mxu.TILE, f)[layout.pair_src]  # [P,T,F]
+            T = mxu.pair_adj_matmul(ctx.adj, gp, cd)              # [P,K,T,F]
+            Sb = segment_sum(T, layout.pair_dst, nb)              # [nb,K,T,F]
         Sb = Sb.transpose(0, 1).reshape(len(full_keys), -1, f)
         S = {k: Sb[i][:n] for i, k in enumerate(full_keys)}
         if need_sq:                                 # c_edge is None here
@@ -333,7 +357,7 @@ def aggregate_decomposed(names: Sequence[str], ctx: EdgeContext,
                if layout is not None else segment_sum(wide, ctx.dst, n))
         S = {k: out[:, a:b] for k, (a, b) in bounds.items()}
 
-    deg = ctx.degree.to(g_node.dtype)
+    deg = ctx.degree.to(h_in.dtype)
     degc = deg.clamp_min(1.0)[:, None]
     has_edge = (deg > 0)[:, None]
     q = q_node

@@ -69,6 +69,12 @@ class MXULayout:
       pair_chunk_order: [C] int32 chunks sorted by pair id (stable).
       pair_sorted_ids: [C] int32 chunk_pair[pair_chunk_order], non-decreasing.
       pair_covered: [P] bool, False for pad pairs.
+    Edge-partitioned (build_mxu_layout_ep; None elsewhere): the pairs are
+    [interior | boundary], the first n_pairs_int reading src blocks of the
+    rank's own region, the rest of its halo region (pair_src -
+    n_own_blocks indexes the halo's blocks); local_graph and
+    node_chunk_graph are None there (per-graph pools take the flat masked
+    path).
     The adjacency kernel's walk (port only; dgn_tpu's layout has neither):
       pair_real_chunk_order: [C] int32 the chunks that hold a real edge, in
         pair_chunk_order's order, then the all-pad chunks.
@@ -80,8 +86,8 @@ class MXULayout:
     local_dst: torch.Tensor
     edge_chunk_src: torch.Tensor
     edge_chunk_dst: torch.Tensor
-    local_graph: torch.Tensor
-    node_chunk_graph: torch.Tensor
+    local_graph: Optional[torch.Tensor]
+    node_chunk_graph: Optional[torch.Tensor]
     n_node_blocks: int
     n_graph_blocks: int
     chunk_pair: torch.Tensor
@@ -94,9 +100,12 @@ class MXULayout:
     pair_real_chunk_order: torch.Tensor
     pair_chunk_start: torch.Tensor
     # static metadata of the reference's max/min lowering, at the reference
-    # defaults (always correct); nothing in this package reads it
+    # defaults (always correct); nothing in this package reads it: the
+    # extremes kernels walk every chunk of a dst block
     ext_passes: int = 7
     ext_block_chunks: int = 0
+    n_pairs_int: Optional[int] = None
+    n_own_blocks: Optional[int] = None
 
     def to(self, device) -> "MXULayout":
         return MXULayout(**{
@@ -165,13 +174,8 @@ def build_mxu_layout(src: np.ndarray, dst: np.ndarray, edge_mask: np.ndarray,
     pair_covered = np.zeros(n_pairs_pad, bool)
     pair_covered[:n_real_pairs] = True
     chunk_pair = chunk_pair.astype(np.int32)
-    # all-pad chunks carry weight 0 only, so the adjacency kernel skips them
-    real = em.any(axis=1)[pair_chunk_order]
-    pair_real_chunk_order = np.concatenate(
-        [pair_chunk_order[real], pair_chunk_order[~real]])
-    pair_chunk_start = np.zeros(n_pairs_pad + 1, np.int32)
-    np.cumsum(np.bincount(chunk_pair[pair_chunk_order[real]],
-                          minlength=n_pairs_pad), out=pair_chunk_start[1:])
+    pair_real_chunk_order, pair_chunk_start = _chunk_walk(
+        chunk_pair, pair_chunk_order, em, n_pairs_pad)
 
     t = torch.from_numpy
     return MXULayout(
@@ -186,6 +190,101 @@ def build_mxu_layout(src: np.ndarray, dst: np.ndarray, edge_mask: np.ndarray,
         pair_covered=t(pair_covered),
         pair_real_chunk_order=t(pair_real_chunk_order),
         pair_chunk_start=t(pair_chunk_start))
+
+
+def _chunk_walk(chunk_pair: np.ndarray, pair_chunk_order: np.ndarray,
+                em: np.ndarray, n_pairs: int):
+    """(pair_real_chunk_order, pair_chunk_start): the adjacency kernel's
+    walk over the chunks that hold a real edge (em: [C, TILE] edge mask)."""
+    # all-pad chunks carry weight 0 only, so the adjacency kernel skips them
+    real = em.any(axis=1)[pair_chunk_order]
+    pair_real_chunk_order = np.concatenate(
+        [pair_chunk_order[real], pair_chunk_order[~real]])
+    pair_chunk_start = np.zeros(n_pairs + 1, np.int32)
+    np.cumsum(np.bincount(chunk_pair[pair_chunk_order[real]],
+                          minlength=n_pairs), out=pair_chunk_start[1:])
+    return pair_real_chunk_order, pair_chunk_start
+
+
+def build_mxu_layout_ep(src: np.ndarray, dst: np.ndarray,
+                        edge_mask: np.ndarray, n_ext: int, nb_own: int,
+                        n_pairs_int_pad: int,
+                        n_pairs_bnd_pad: int) -> MXULayout:
+    """The layout of ONE edge-partitioned rank (dgn_tpu/ops/mxu.py:267-355).
+
+    The rank's node axis is [own | halo], both 128-aligned (nb_own own
+    blocks); its edges are already arranged into (src_block, dst_block)
+    chunks by graph._mxu_edge_arrange.  Unlike build_mxu_layout: no
+    graph-pooling blocks (local_graph None), and the pairs are ordered
+    [interior | boundary] by whether the src block is an own one, each group
+    dst-major and padded to a size every rank shares.  Pad pairs point at
+    (src block 0, or the first halo block nb_own for the boundary group;
+    dst block nb - 1) and receive no chunk, so their blocks are zero."""
+    e_pad = len(src)
+    if e_pad % TILE or n_ext % TILE:
+        raise ValueError("mxu ep layout needs TILE-multiple axes")
+    cs = src.reshape(-1, TILE) // TILE
+    cd = dst.reshape(-1, TILE) // TILE
+    em = edge_mask.reshape(-1, TILE)
+
+    def _chunk_id(blocks, mask):
+        first = blocks[:, 0]
+        ok = np.all((blocks == first[:, None]) | ~mask, axis=1)
+        if not np.all(ok):
+            raise ValueError("edge chunk spans multiple node blocks")
+        return first.astype(np.int32)
+
+    chunk_src = _chunk_id(cs, em)
+    chunk_dst = _chunk_id(cd, em)
+    local_src = (src - chunk_src.repeat(TILE) * TILE).astype(np.int32)
+    local_dst = (dst - chunk_dst.repeat(TILE) * TILE).astype(np.int32)
+    nb = n_ext // TILE
+
+    # distinct pairs, interior group first, dst-major inside each group
+    pair_key = chunk_dst.astype(np.int64) * nb + chunk_src
+    is_bnd_chunk = chunk_src >= nb_own
+    uniq_key, inv = np.unique(
+        pair_key + np.where(is_bnd_chunk, np.int64(nb) * nb, 0),
+        return_inverse=True)
+    bnd_mask = uniq_key >= np.int64(nb) * nb
+    n_int_real = int((~bnd_mask).sum())
+    n_bnd_real = int(bnd_mask.sum())
+    if n_int_real > n_pairs_int_pad or n_bnd_real > n_pairs_bnd_pad:
+        raise ValueError(
+            f"ep pair overflow: ({n_int_real},{n_bnd_real}) > "
+            f"({n_pairs_int_pad},{n_pairs_bnd_pad})")
+    key_mod = uniq_key % (np.int64(nb) * nb)
+    # pair ids: interior [0, n_int_real) then its pads, boundary from
+    # n_pairs_int_pad on, then its pads
+    new_id = np.where(bnd_mask,
+                      n_pairs_int_pad + np.cumsum(bnd_mask) - 1,
+                      np.cumsum(~bnd_mask) - 1).astype(np.int64)
+    chunk_pair = new_id[inv.reshape(-1)].astype(np.int32)
+    n_pairs = n_pairs_int_pad + n_pairs_bnd_pad
+    pair_src = np.zeros(n_pairs, np.int32)
+    pair_dst = np.full(n_pairs, nb - 1, np.int32)
+    pair_src[n_pairs_int_pad:] = nb_own          # boundary pads: halo block 0
+    pair_src[new_id] = (key_mod % nb).astype(np.int32)
+    pair_dst[new_id] = (key_mod // nb).astype(np.int32)
+    pair_covered = np.zeros(n_pairs, bool)
+    pair_covered[new_id] = True
+    pair_chunk_order = np.argsort(chunk_pair, kind="stable").astype(np.int32)
+    pair_real_chunk_order, pair_chunk_start = _chunk_walk(
+        chunk_pair, pair_chunk_order, em, n_pairs)
+    t = torch.from_numpy
+    return MXULayout(
+        local_src=t(local_src), local_dst=t(local_dst),
+        edge_chunk_src=t(chunk_src), edge_chunk_dst=t(chunk_dst),
+        local_graph=None, node_chunk_graph=None,
+        n_node_blocks=nb, n_graph_blocks=0,
+        chunk_pair=t(chunk_pair), pair_src=t(pair_src),
+        pair_dst=t(pair_dst), n_pairs=n_pairs,
+        pair_chunk_order=t(pair_chunk_order),
+        pair_sorted_ids=t(np.ascontiguousarray(chunk_pair[pair_chunk_order])),
+        pair_covered=t(pair_covered),
+        pair_real_chunk_order=t(pair_real_chunk_order),
+        pair_chunk_start=t(pair_chunk_start),
+        n_pairs_int=n_pairs_int_pad, n_own_blocks=nb_own)
 
 
 def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -187,21 +187,11 @@ def rank_seeds(seed: int, rank: int) -> Tuple[int, int]:
     return dropout, int(ss.spawn(1)[0].generate_state(1)[0])
 
 
-class DataParallelTrainer(Trainer):
-    """The Trainer of one rank of a data-parallel mesh.
-
-    train_step runs the Trainer's forward and backward on this rank's
-    shard, then all-reduces the gradients (sum, ROADMAP C6) before the
-    Adam step, and the loss and the batch-norm buffers (mean) after it.
-    The model should be built with DGNConfig(bn_axis="dp") for the D-vs-1
-    equivalence
-    (its batch norms are bound to the mesh here); without it each rank
-    normalises with its own shard's statistics, the reference's per-GPU
-    batch norm.  train_epoch and evaluate feed the task metric every
-    shard's scores, labels and masks (all-gathered), as dgn_tpu's
-    _flatten_stacked does, and evaluate's loss is the mean over ranks.
-    Only rank 0 logs, writes metric records and saves checkpoints; every
-    rank restores one."""
+class RankTrainer(Trainer):
+    """What the trainers of one rank of a mesh share: the model's batch
+    norms bound to the mesh, the gradient sum over the ranks, the max_time
+    stop decided by rank 0, and logging, metric records and checkpoints
+    on rank 0 only."""
 
     def __init__(self, model: torch.nn.Module, loss_fn, params: TrainParams,
                  mesh: Mesh, task: str = "zinc"):
@@ -209,9 +199,6 @@ class DataParallelTrainer(Trainer):
                          device=mesh.device)
         self.mesh = mesh
         bind_mesh(self.model, mesh)
-        dropout_seed, aug_seed = rank_seeds(params.seed, mesh.rank)
-        self.dropout_generator.manual_seed(dropout_seed)
-        self.aug_generator.manual_seed(aug_seed)
 
     def _all_reduce(self, tensors: List[torch.Tensor],
                     mean: bool = True) -> None:
@@ -235,6 +222,49 @@ class DataParallelTrainer(Trainer):
         grads = [p.grad for p in self.model.parameters()
                  if p.grad is not None]
         self._all_reduce(grads, mean=False)
+
+    def out_of_time(self, t0: float) -> bool:
+        """The max_time stop, decided by rank 0 for every rank (the ranks'
+        clocks differ, and a rank that stops alone would hang the
+        others)."""
+        flag = torch.tensor([float(super().out_of_time(t0))],
+                            device=self.device)
+        if self.mesh.size > 1:
+            dist.broadcast(flag, src=0, group=self.mesh.group)
+        return bool(flag.item())
+
+    def fit(self, train_loader, val_loader=None, test_loader=None,
+            log=print, checkpointer=None, start_epoch: int = 0,
+            stream=None):
+        if self.mesh.rank != 0:
+            log, checkpointer, stream = (lambda s: None), None, None
+        return super().fit(train_loader, val_loader, test_loader, log=log,
+                           checkpointer=checkpointer,
+                           start_epoch=start_epoch, stream=stream)
+
+
+class DataParallelTrainer(RankTrainer):
+    """The Trainer of one rank of a data-parallel mesh.
+
+    train_step runs the Trainer's forward and backward on this rank's
+    shard, then all-reduces the gradients (sum, ROADMAP C6) before the
+    Adam step, and the loss and the batch-norm buffers (mean) after it.
+    The model should be built with DGNConfig(bn_axis="dp") for the D-vs-1
+    equivalence
+    (its batch norms are bound to the mesh here); without it each rank
+    normalises with its own shard's statistics, the reference's per-GPU
+    batch norm.  train_epoch and evaluate feed the task metric every
+    shard's scores, labels and masks (all-gathered), as dgn_tpu's
+    _flatten_stacked does, and evaluate's loss is the mean over ranks.
+    Only rank 0 logs, writes metric records and saves checkpoints; every
+    rank restores one."""
+
+    def __init__(self, model: torch.nn.Module, loss_fn, params: TrainParams,
+                 mesh: Mesh, task: str = "zinc"):
+        super().__init__(model, loss_fn, params, mesh, task=task)
+        dropout_seed, aug_seed = rank_seeds(params.seed, mesh.rank)
+        self.dropout_generator.manual_seed(dropout_seed)
+        self.aug_generator.manual_seed(aug_seed)
 
     def train_step(self, gb, aug=None):
         """One data-parallel step on this rank's shard; returns the loss
@@ -304,22 +334,3 @@ class DataParallelTrainer(Trainer):
             view, s = self.gather_shards(gb, scores)
             acc.add(view, s, float(loss))
         return acc.result()
-
-    def out_of_time(self, t0: float) -> bool:
-        """The max_time stop, decided by rank 0 for every rank (the ranks'
-        clocks differ, and a rank that stops alone would hang the
-        others)."""
-        flag = torch.tensor([float(super().out_of_time(t0))],
-                            device=self.device)
-        if self.mesh.size > 1:
-            dist.broadcast(flag, src=0, group=self.mesh.group)
-        return bool(flag.item())
-
-    def fit(self, train_loader, val_loader=None, test_loader=None,
-            log=print, checkpointer=None, start_epoch: int = 0,
-            stream=None):
-        if self.mesh.rank != 0:
-            log, checkpointer, stream = (lambda s: None), None, None
-        return super().fit(train_loader, val_loader, test_loader, log=log,
-                           checkpointer=checkpointer,
-                           start_epoch=start_epoch, stream=stream)

@@ -39,7 +39,14 @@ Each rank runs `prepare`'s dp branch: batch norm synced over the ranks
 shard size, a StackedLoader per split, a DataParallelTrainer; as in
 dgn_tpu, micro-batches and `--n_buckets` do not apply there.  Rank 0 alone
 prints, writes metrics.jsonl and saves checkpoints; every rank restores.
-`--partition ep` raises NotImplementedError (ROADMAP A11b).
+`--partition ep` (edge parallelism, dgn_tpu/run.py:113-126) takes the same
+ranks through `prepare`'s ep branch instead: batch norm synced over the
+ranks (bn_axis "ep"), every batch of batch_size graphs cut across the
+ranks (parallel/halo.py PartitionedLoader: this rank's nodes, the edges
+into them and a halo), an EdgeParallelTrainer.  With one device
+(`--n_devices 1`, the default) `--partition ep` trains on one device as
+dgn_tpu does; as one rank of a mesh (`--multihost`, or a mesh handed to
+`_run_rank`) it runs the ep branch at any rank count, one included.
 
 The model runs on the GPU (`--device cuda`, the default) unless the caller
 asks for the CPU (`--device cpu`); without a GPU and without that request
@@ -126,7 +133,7 @@ def build_model(task: str, np_cfg, ds, generator: torch.Generator):
     return factory(np_cfg, generator, pos_enc_in=pe)
 
 
-def prepare(cfg, device="cuda", mesh=None):
+def prepare(cfg, device="cuda", mesh=None, partition: str = "dp"):
     """Dataset + model + trainer + loaders, shared by run() and tests.
     `datasets.load_dataset` is looked up at call time, so a caller may
     substitute a caching loader (chip_smoke.py's share_datasets).  With a
@@ -134,7 +141,8 @@ def prepare(cfg, device="cuda", mesh=None):
     at bn_axis "dp", per-rank shards of max(batch_size // ranks, 1)
     graphs at pad_geometry's pads for that size over every split's
     graphs, a StackedLoader per split and a DataParallelTrainer on the
-    mesh's device (device is then unused)."""
+    mesh's device (device is then unused).  With partition "ep" and a
+    mesh, the edge-parallel branch (_prepare_ep)."""
     from .data.datasets import load_dataset
     from .data.loader import BatchLoader, BucketedLoader
     from .ops.scalers import degree_stats
@@ -164,6 +172,8 @@ def prepare(cfg, device="cuda", mesh=None):
     generator = torch.Generator().manual_seed(cfg.params.seed)
     bs = cfg.params.batch_size
     layout = resolve_layout(cfg.data.layout)
+    if mesh is not None and partition == "ep":
+        return _prepare_ep(cfg, task, np_cfg, ds, generator, mesh, layout)
     if mesh is not None:
         return _prepare_dp(cfg, task, np_cfg, ds, generator, mesh, layout)
     model, loss_fn = build_model(task, np_cfg, ds, generator)
@@ -206,6 +216,27 @@ def _prepare_dp(cfg, task, np_cfg, ds, generator, mesh, layout):
                                     n_pad=n_pad, e_pad=e_pad,
                                     shuffle=(split == "train"),
                                     seed=cfg.params.seed, layout=layout)
+               for split, gs in ds.splits.items()}
+    return ds, model, loss_fn, trainer, loaders
+
+
+def _prepare_ep(cfg, task, np_cfg, ds, generator, mesh, layout):
+    """prepare's edge-parallel branch (dgn_tpu/run.py:113-126): the model
+    at bn_axis "ep", a PartitionedLoader per split (batches of batch_size
+    graphs, graph axis padded to batch_size, this rank's shard of each)
+    and an EdgeParallelTrainer, node-level for SBM.  As in dgn_tpu,
+    micro-batches and --n_buckets do not apply."""
+    from .parallel import EdgeParallelTrainer, PartitionedLoader
+    np_cfg = dataclasses.replace(np_cfg, bn_axis="ep")
+    model, loss_fn = build_model(task, np_cfg, ds, generator)
+    trainer = EdgeParallelTrainer(model, loss_fn, cfg.params, mesh,
+                                  task=task, node_level=task == "sbm")
+    bs = cfg.params.batch_size
+    loaders = {split: PartitionedLoader(gs, batch_size=bs,
+                                        n_shards=mesh.size, rank=mesh.rank,
+                                        shuffle=(split == "train"),
+                                        seed=cfg.params.seed, g_pad=bs,
+                                        layout=layout)
                for split, gs in ds.splits.items()}
     return ds, model, loss_fn, trainer, loaders
 
@@ -276,11 +307,12 @@ def _precision() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
-def _banner(cfg, device, n_devices: int = 1) -> None:
+def _banner(cfg, device, n_devices: int = 1, partition: str = "dp") -> None:
     layout = "flat" if cfg.task == "collab" else resolve_layout(
         cfg.data.layout)
     print(f"[dgn_tpu_torch] dataset={cfg.dataset} task={cfg.task} "
-          f"device={device} n_devices={n_devices} layout={layout} "
+          f"device={device} n_devices={n_devices} partition={partition} "
+          f"layout={layout} "
           f"compute_dtype={cfg.net_params.compute_dtype or 'float32'}")
 
 
@@ -288,10 +320,6 @@ def run(argv=None):
     from .config import config_from_args
 
     cfg, args = config_from_args(argv)
-    if args.partition == "ep":
-        raise NotImplementedError(
-            "--partition ep (edge-partitioned graphs with a halo exchange, "
-            "dgn_tpu/parallel/halo.py) is not ported yet: ROADMAP A11b")
     if args.multihost:
         return run_multihost(cfg, args)
     n_devices = args.n_devices or 1
@@ -339,7 +367,7 @@ def run_multihost(cfg, args):
 def _run_rank(cfg, args, mesh):
     _precision()
     if mesh.rank == 0:
-        _banner(cfg, mesh.device, mesh.size)
+        _banner(cfg, mesh.device, mesh.size, args.partition)
     if mesh.device.type == "cuda":
         torch.cuda.set_device(mesh.device)
     return run_mesh(cfg, args, mesh.device, mesh)
@@ -438,7 +466,8 @@ def run_one(cfg, args, device, mesh=None):
     say = _say(mesh)
     t0 = time.time()
     ds, model, loss_fn, trainer, loaders = (
-        prepare(cfg, device) if mesh is None else prepare(cfg, device, mesh))
+        prepare(cfg, device) if mesh is None
+        else prepare(cfg, device, mesh, args.partition))
     say(f"[dgn_tpu_torch] data ready in {time.time() - t0:.1f}s "
         f"(train/val/test = {len(ds.train)}/{len(ds.val)}/{len(ds.test)})")
     n_param = sum(p.numel() for p in model.parameters())

@@ -50,6 +50,8 @@ import numpy as np
 import pytest
 import torch
 
+from grad_checks import assert_live
+
 from dgn_tpu import graph as jgraph
 from dgn_tpu.data import synthetic as jsyn
 from dgn_tpu.models import DGNConfig as JConfig
@@ -358,8 +360,10 @@ def test_model_bf16_matches_reference(case):
                                np.asarray(jscores)[mask], **MODEL)
     noise = [k for k in flatten(params) if k.endswith("posttrans/bias")
              and not kw.get("graph_norm", True)]
-    _grads_close(model.named_parameters(),
-                 flatten(jax.tree_util.tree_map(np.asarray, jgrads)), noise)
+    want_grads = flatten(jax.tree_util.tree_map(np.asarray, jgrads))
+    _grads_close(model.named_parameters(), want_grads, noise)
+    assert_live([(k, p.grad) for k, p in model.named_parameters()],
+                want_grads)
 
     # one Adam(+L2) step from the same start
     model, tloss = port_model()

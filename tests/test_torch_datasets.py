@@ -23,6 +23,7 @@ import torch
 from threadpoolctl import threadpool_limits
 
 import real_files
+from grad_checks import assert_live
 from test_torch_layers import _assert_tree, _avg_d, run_jitted
 
 from dgn_tpu import graph as jgraph
@@ -351,7 +352,9 @@ def test_train_step_from_real_files_matches_reference(tmp_path, name):
     np.testing.assert_allclose(float(loss.detach()), float(jl), **FWD)
     np.testing.assert_allclose(scores.detach().numpy()[mask],
                                np.asarray(jscores)[mask], **FWD)
-    _assert_tree([(k, p.grad) for k, p in model.named_parameters()],
-                 flatten(jax.tree_util.tree_map(np.asarray, jgrads)), FWD)
+    grads = [(k, p.grad) for k, p in model.named_parameters()]
+    want_grads = flatten(jax.tree_util.tree_map(np.asarray, jgrads))
+    _assert_tree(grads, want_grads, FWD)
+    assert_live(grads, want_grads)
     _assert_tree(model.named_buffers(),
                  flatten(jax.tree_util.tree_map(np.asarray, new_bs)), BN)

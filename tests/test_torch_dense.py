@@ -29,6 +29,8 @@ import pytest
 import scipy.linalg
 import torch
 
+from grad_checks import assert_live
+
 from dgn_tpu import dense as jdense
 from dgn_tpu.dense import aggregators as jagg
 
@@ -347,3 +349,4 @@ def test_dense_module_forward_and_gradients(rng, case):
     for name, p in tm.named_parameters():
         np.testing.assert_allclose(_np(p.grad), want_g[paths[name]],
                                    err_msg=name, **GRAD)
+    assert_live([(k, p.grad) for k, p in tm.named_parameters()], want_g)

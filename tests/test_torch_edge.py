@@ -45,6 +45,8 @@ import numpy as np
 import pytest
 import torch
 
+from grad_checks import assert_live
+
 from dgn_tpu import graph as jgraph
 from dgn_tpu.data import synthetic as jsyn
 from dgn_tpu.models import DGNConfig as JConfig
@@ -382,8 +384,10 @@ def test_model_forward_grads_and_adam_step_match_reference(case):
     np.testing.assert_allclose(float(loss.detach()), float(jl), **STEP)
     np.testing.assert_allclose(scores.detach().numpy()[mask],
                                np.asarray(jscores)[mask], **STEP)
-    _assert_tree([(k, p.grad) for k, p in model.named_parameters()],
-                 flatten(jax.tree_util.tree_map(np.asarray, jgrads)), GRAD)
+    grads = [(k, p.grad) for k, p in model.named_parameters()]
+    want_grads = flatten(jax.tree_util.tree_map(np.asarray, jgrads))
+    _assert_tree(grads, want_grads, GRAD)
+    assert_live(grads, want_grads)
     _assert_tree(model.named_buffers(), new_bs, BN)
 
     # the port's Adam(+L2) step from the same start

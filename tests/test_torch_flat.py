@@ -38,6 +38,8 @@ import numpy as np
 import pytest
 import torch
 
+from grad_checks import assert_live
+
 from dgn_tpu import graph as jgraph
 from dgn_tpu import run as jrun
 from dgn_tpu.data import synthetic as jsyn
@@ -560,8 +562,10 @@ def test_flat_model_matches_reference_and_block_layout(case):
     np.testing.assert_allclose(float(loss.detach()), float(jl), **STEP)
     np.testing.assert_allclose(scores.detach().numpy()[mask],
                                np.asarray(jscores)[mask], **STEP)
-    _assert_tree([(k, p.grad) for k, p in model.named_parameters()],
-                 flatten(jax.tree_util.tree_map(np.asarray, jgrads)), GRAD)
+    grads = [(k, p.grad) for k, p in model.named_parameters()]
+    want_grads = flatten(jax.tree_util.tree_map(np.asarray, jgrads))
+    _assert_tree(grads, want_grads, GRAD)
+    assert_live(grads, want_grads)
     _assert_tree(model.named_buffers(), new_bs, BN)
 
     if case in ("zinc", "hiv"):

@@ -26,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+from grad_checks import assert_live
+
 from dgn_tpu import graph as jgraph
 from dgn_tpu import nn as jnn
 from dgn_tpu.config import DataParams as JDataParams
@@ -138,8 +140,10 @@ def _model_parity(jfactory, tfactory, net, graphs, n_classes=None,
     np.testing.assert_allclose(float(loss.detach()), float(jl), **FWD)
     np.testing.assert_allclose(scores.detach().numpy()[mask],
                                np.asarray(jscores)[mask], **FWD)
-    _assert_tree([(k, p.grad) for k, p in model.named_parameters()],
-                 flatten(jax.tree_util.tree_map(np.asarray, jgrads)), FWD)
+    grads = [(k, p.grad) for k, p in model.named_parameters()]
+    want_grads = flatten(jax.tree_util.tree_map(np.asarray, jgrads))
+    _assert_tree(grads, want_grads, FWD)
+    assert_live(grads, want_grads)
     _assert_tree(model.named_buffers(),
                  flatten(jax.tree_util.tree_map(np.asarray, new_bs)), BN)
     return model

@@ -35,6 +35,8 @@ import numpy as np
 import pytest
 import torch
 
+from grad_checks import assert_live
+
 from dgn_tpu.config import DataParams as JDataParams
 from dgn_tpu.data import datasets as jdatasets
 from dgn_tpu.data import synthetic as jsyn
@@ -229,8 +231,10 @@ def test_collab_embeddings_scores_loss_grads_match_reference():
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                    **STEP)
     np.testing.assert_allclose(float(loss.detach()), float(jl), **STEP)
-    _assert_tree([(k, p.grad) for k, p in model.named_parameters()],
-                 flatten(jax.tree_util.tree_map(np.asarray, jgrads)), GRAD)
+    grads = [(k, p.grad) for k, p in model.named_parameters()]
+    want_grads = flatten(jax.tree_util.tree_map(np.asarray, jgrads))
+    _assert_tree(grads, want_grads, GRAD)
+    assert_live(grads, want_grads)
     _assert_tree(model.named_buffers(), flatten(jax.tree_util.tree_map(
         np.asarray, mut["batch_stats"])), BN)
 

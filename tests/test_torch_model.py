@@ -26,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+from grad_checks import assert_live
+
 from dgn_tpu import graph as jgraph
 from dgn_tpu.data import synthetic as jsyn
 from dgn_tpu.models import DGNConfig as JConfig
@@ -220,8 +222,9 @@ def test_zinc_forward_loss_grads_bn_match_reference(setup):
                                np.asarray(jscores)[gmask],
                                rtol=1e-4, atol=2e-5)
     grads = [(k, p.grad) for k, p in model.named_parameters()]
-    _assert_tree(grads, flatten(jax.tree_util.tree_map(np.asarray, jgrads)),
-                 rtol=1e-3, atol=1e-5)
+    want_grads = flatten(jax.tree_util.tree_map(np.asarray, jgrads))
+    _assert_tree(grads, want_grads, rtol=1e-3, atol=1e-5)
+    assert_live(grads, want_grads)
     _assert_tree(model.named_buffers(),
                  flatten(jax.tree_util.tree_map(np.asarray, new_bs)),
                  rtol=1e-4, atol=1e-6)

@@ -25,8 +25,8 @@
     (HIV ROC-AUC from every shard's scores) against dgn_tpu's.
   * StackedLoader's shards and escapes == dgn_tpu's, host only (tests/
     test_parallel.py:120-141's case), and shard_fits == pack_graphs.
-  * The entry point with --n_devices 2 --device cpu, --partition ep,
-    --n_devices 2 without the GPUs, and the --multihost wiring with
+  * The entry point with --n_devices 2 --device cpu, --n_devices 2
+    without the GPUs (under dp and ep), and the --multihost wiring with
     init_process_group patched (tests/test_parallel.py:143-196).
 All the 2-rank jobs run in one spawn (a module fixture) with a deadline.
 """
@@ -570,14 +570,15 @@ def test_entry_point_trains_on_two_gloo_ranks(tmp_path):
 
 
 def test_entry_point_refuses_what_it_cannot_run(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A11b"):
-        trun.run(TINY + ["--n_devices", "2", "--partition", "ep",
-                         "--device", "cpu"])
+    """Fewer GPUs than ranks is an error under either partition, never a
+    fall-back to the CPU (--partition ep runs: tests/test_torch_halo.py)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    with pytest.raises(SystemExit, match="--n_devices 2 needs 2 GPUs, but "
-                       "1 are visible"):
-        trun.run(TINY + ["--n_devices", "2", "--device", "cuda"])
+    for partition in ("dp", "ep"):
+        with pytest.raises(SystemExit, match="--n_devices 2 needs 2 GPUs, "
+                           "but 1 are visible"):
+            trun.run(TINY + ["--n_devices", "2", "--device", "cuda",
+                             "--partition", partition])
 
 
 def test_init_multihost_wires_init_process_group(monkeypatch):

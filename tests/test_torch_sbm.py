@@ -29,6 +29,8 @@ import numpy as np
 import pytest
 import torch
 
+from grad_checks import assert_live
+
 from dgn_tpu import graph as jgraph
 from dgn_tpu.config import DataParams as JDataParams
 from dgn_tpu.data import datasets as jdatasets
@@ -204,9 +206,10 @@ def test_pattern_forward_loss_grads_bn_match_reference(setup):
     np.testing.assert_allclose(scores.detach().numpy()[nmask],
                                np.asarray(jscores)[nmask],
                                rtol=1e-4, atol=2e-5)
-    _assert_tree([(k, p.grad) for k, p in model.named_parameters()],
-                 flatten(jax.tree_util.tree_map(np.asarray, jgrads)),
-                 rtol=1e-3, atol=1e-5)
+    grads = [(k, p.grad) for k, p in model.named_parameters()]
+    want_grads = flatten(jax.tree_util.tree_map(np.asarray, jgrads))
+    _assert_tree(grads, want_grads, rtol=1e-3, atol=1e-5)
+    assert_live(grads, want_grads)
     _assert_tree(model.named_buffers(),
                  flatten(jax.tree_util.tree_map(np.asarray, new_bs)),
                  rtol=1e-4, atol=1e-6)
