@@ -15,7 +15,8 @@ and no device line.  Phases, each of which fails the script:
    PyTorch version on the card and against an f64 oracle, and timed beside
    the plain version, one equivalent PyTorch call and the card's bound:
    build_pair_adjacency at the ZINC and the CIFAR10 batch, in float32 and
-   in its bf16 output mode (plus a multi-block case), each timing line
+   in its bf16 and f16 output modes (plus a multi-block case), each timing
+   line
    with the batch's covered, uncovered and all-pad-chunk counts, the
    launch's grid and shared bytes, the write floor (zero_() of a
    tensor of the output's shape and dtype, timed the same way) and the
@@ -23,12 +24,12 @@ and no device line.  Phases, each of which fails the script:
    at an edge-parallel rank's shard of a ZINC batch (2 ranks); the
    segment_extremes forward/backward
    pair at the HIV batch and at one PCBA micro-batch (plus tie, star,
-   multi-block and dense-block cases) with its grids, and the forward at an
+   multi-block and dense-block cases) with its grids, and at an
    edge-parallel rank's shard of an HIV batch;
    The extremes pair is also held against its plain version at F = 14, the
    width a towers layer gives each of its 5 towers at HIV's hidden 70;
 4. training, once per path: the port's entry point (dgn_tpu_torch.run)
-   trains each of the thirteen configs of PATHS at full width on the card:
+   trains each of the paths of PATHS at full width on the card:
    ZINC, HIV, PATTERN, CIFAR10, PCBA at its batch of 2048 in 2
    micro-batches, and with the options of the reference's own training
    scripts: ZINC with 5 towers, flip and a positional encoding
@@ -42,8 +43,10 @@ and no device line.  Phases, each of which fails the script:
    CIFAR10 in bfloat16 (zinc-bf16, hiv-bf16, cifar10-bf16,
    --compute_dtype bfloat16: the adjacency kernel's bf16 blocks, bf16
    operands with float32 accumulation in every block product, gather and
-   scatter; each path's launches must equal its float32 sibling's, and
-   its blocks must be bf16).  Every kernel launch
+   scatter) and in float16 (zinc-fp16, hiv-fp16, cifar10-fp16,
+   --compute_dtype float16: the kernel's f16 blocks, f16 operands); each
+   such path's launches must equal its float32 sibling's, and its blocks
+   must be in its compute dtype.  Every kernel launch
    counter is set to 0 just before and read just after each run, and
    checked against the count the path's loaders, tower count, edge stage
    and layout imply (no adjacency build where the config does not
@@ -58,10 +61,11 @@ and no device line.  Phases, each of which fails the script:
    flat-versus-block check: the same graphs packed both ways, one step
    from the same weights on the card, the same loss and scores.  Each
    path prints its peak device memory (torch.cuda.max_memory_allocated)
-   over its entry-point run and over its timed steps, and each bf16 path
-   its float32 sibling's step figures from the same call beside its own;
+   over its entry-point run and over its timed steps, and each bf16 or
+   f16 path its float32 sibling's step figures from the same call beside
+   its own and how far its scores lie from the sibling's on the card;
 5. COLLAB: `dgn_tpu_torch.run --dataset COLLAB` trains link prediction on
-   one synthetic 4,096-node graph (one epoch of 3 edge batches of 4,096,
+   one synthetic 2,048-node graph (one epoch of edge batches of 4,096,
    the default DGN-complex net at hidden 45, L = 4) with both counters
    at 0 before and required at 0 after; then MIN_STEPS train steps timed
    and profiled, and one step from identical weights and identical
@@ -160,6 +164,7 @@ HIV = "molecules_graph_classification_DGN_HIV.json"
 PCBA = "molecules_graph_classification_DGN_PCBA.json"
 CIFAR10 = "superpixels_graph_classification_DGN_CIFAR10.json"
 BF16_FLAGS = ("--compute_dtype", "bfloat16")
+FP16_FLAGS = ("--compute_dtype", "float16")
 # PATTERN's 4096 gives 1024 train graphs (load_sbm keeps n // 4), PCBA's
 # 4096 gives two steps of 2048 graphs per epoch.  The augmentation values
 # are tests/test_train.py's: the repo has no published setting for them.
@@ -186,12 +191,16 @@ PATHS = (
     TrainPath("hiv-flat", HIV, 0, 1024, ("--layout", "flat")),
     TrainPath("zinc-bf16", ZINC, 0, 1024, BF16_FLAGS),
     TrainPath("hiv-bf16", HIV, 4, 1024, BF16_FLAGS),
-    TrainPath("cifar10-bf16", CIFAR10, 0, 1024, BF16_FLAGS))
+    TrainPath("cifar10-bf16", CIFAR10, 0, 1024, BF16_FLAGS),
+    TrainPath("zinc-fp16", ZINC, 0, 1024, FP16_FLAGS),
+    TrainPath("hiv-fp16", HIV, 4, 1024, FP16_FLAGS),
+    TrainPath("cifar10-fp16", CIFAR10, 0, 1024, FP16_FLAGS))
 # The paths on dataset files in the reference's real layouts (docs/DATA.md),
-# written under REAL_DIR by tests/real_files.py from seeds: 1024 train
-# graphs each (HIV about 1024 after its tiny molecules are dropped, CIFAR10
-# 1024 after the last 113 of 1137 become val), 102 val and test; the ZINC
-# paths keep their eigenvectors in REAL_CACHE
+# written under REAL_DIR by tests/real_files.py from seeds: 512 train
+# graphs each (CIFAR10 512 after the last 56 of 568 become val; HIV about
+# 1024 of OGB_GRAPHS after its tiny molecules are dropped), 51 val and
+# test; the ZINC paths keep their eigenvectors in REAL_CACHE.  (1024 train
+# graphs until the fp16 paths came: cut to keep the script's time.)
 REAL_DIR = REPO / "out" / "chip_smoke_real"
 REAL_DATA, REAL_CACHE = REAL_DIR / "data", REAL_DIR / "eig_cache"
 DATA_FLAGS = ("--data_dir", str(REAL_DATA))
@@ -204,12 +213,13 @@ REAL_PATHS = (
               1024, DATA_FLAGS),
     TrainPath("zinc-buckets", ZINC, 0, 1024,
               ZINC_REAL_FLAGS + ("--n_buckets", "4")))
-REAL_SIZES = {"train": 1024, "val": 102, "test": 102}
+REAL_SIZES = {"train": 512, "val": 51, "test": 51}
 OGB_GRAPHS = 1422        # 80 % train, every tenth molecule dropped as tiny
 PACK_BATCHES = 24        # host pack timings per dataset and packer
-# COLLAB's dense eigensolve grows as n^3: 4,096 nodes take about 10 s of
-# host time, 16,384 did not finish in 90 s
-COLLAB_NODES = 4096
+# COLLAB's dense eigensolve grows as n^3: 4,096 nodes took about 10 s of
+# host time (the size until the fp16 paths came), 16,384 did not finish in
+# 90 s
+COLLAB_NODES = 2048
 SOFTMAX_AGGREGATORS = "mean dir1-0.1 dir1-neg-0.1"
 EPOCHS = 1
 MIN_STEPS = 24           # timed train steps per path (the first 3 dropped)
@@ -222,13 +232,38 @@ STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
 # to neighbouring bf16 values (2^-8 apart); the CPU tests hold the port
 # against dgn_tpu in bf16 at the same 2e-2 (tests/test_torch_bf16.py)
 BF16_STEP_RTOL, BF16_STEP_ATOL = 2e-2, 2e-3
+# f16 blocks: one rounding of entries |w| <= 2 (1 and eigenvector
+# differences), at most half of float16's 2^-10 spacing in [1, 2)
+F16_TOL = 1e-3
+# an f16 step: the same neighbouring roundings, with float16's spacing
+# 2^-11, 8 times finer than bf16's: the bf16 tolerances / 8.  A CPU
+# rehearsal of this check (a second model whose weights differ in their
+# last float32 bit standing for the card, 3 draws) moved hiv-fp16's scores
+# by up to 7.0e-6 (HIV's max/min ties; bf16 4.3e-5), ZINC's and CIFAR10's
+# by under 1e-7
+F16_STEP_RTOL, F16_STEP_ATOL = 2.5e-3, 2.5e-4
+# tolerances by dtype name: a kernel's blocks against the plain version
+# and the oracle, and a CPU-vs-card step under a config's compute_dtype
+KERNEL_TOL = {"float32": F32_TOL, "bfloat16": BF16_TOL, "float16": F16_TOL}
+STEP_TOL = {None: (STEP_RTOL, STEP_ATOL), "float32": (STEP_RTOL, STEP_ATOL),
+            "bfloat16": (BF16_STEP_RTOL, BF16_STEP_ATOL),
+            "float16": (F16_STEP_RTOL, F16_STEP_ATOL)}
 POISON_RTOL, POISON_ATOL = 1e-5, 1e-6
+# torch.profiler windows per timing before a short trace fails the script
+# (the card has returned 5, 15 and 19 of at least 20 activities in three
+# windows in a row), and the spin-kernel launches at each edge of a window
+PROFILER_WINDOWS, SENTINELS = 5, 8
 DEVICE = "cuda"
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def kernel_tol(dtype) -> float:
+    """KERNEL_TOL of a torch dtype."""
+    return KERNEL_TOL[str(dtype).removeprefix("torch.")]
 
 
 def card_line() -> str:
@@ -272,20 +307,34 @@ def timed(torch, fn, iters: int = 20, warmup: int = 3):
 
 
 def profiled(torch, run, min_events: int = 1):
-    """The device events of run() under torch.profiler.  A window whose
-    trace comes back with fewer than min_events device activities is run
-    again, twice at most, before the script fails."""
+    """The device events of run() under torch.profiler.  The window opens
+    and closes with SENTINELS launches of torch's spin kernel, which the
+    events returned leave out: this card's profiler has dropped activities
+    at a window's edges (19 of 20 in five windows in a row).  A window
+    whose trace still comes back with fewer than min_events device
+    activities is run again, four times at most, before the script
+    fails."""
     from torch.profiler import ProfilerActivity, profile
-    for window in range(3):
+
+    def sentinels():
+        for _ in range(SENTINELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+
+    for window in range(PROFILER_WINDOWS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            sentinels()
             run()
             torch.cuda.synchronize()
-        events = device_events(torch, prof)
+            sentinels()
+        events = [e for e in device_events(torch, prof)
+                  if "spin_kernel" not in e.name]
         if len(events) >= min_events:
             return events
         print(f"torch.profiler recorded {len(events)} device activities in "
-              f"window {window + 1} of 3, fewer than {min_events}")
+              f"window {window + 1} of {PROFILER_WINDOWS}, fewer than "
+              f"{min_events}")
     fail(f"torch.profiler recorded fewer than {min_events} device "
          "activities")
 
@@ -459,7 +508,7 @@ def time_adjacency(torch, w, layout, shape: str, out_dtype) -> dict:
     w_out = w.to(out_dtype)
     out.index_put_(idx, w_out, accumulate=True)
     ref = adjacency.build_pair_adjacency(w, layout, out_dtype)
-    tol = F32_TOL if out_dtype == torch.float32 else BF16_TOL
+    tol = kernel_tol(out_dtype)
     if (out.float() - ref.float()).abs().max().item() > tol:
         fail("the library call does not compute build_pair_adjacency")
     library_ms, library_call_ms = timed(
@@ -510,11 +559,13 @@ def adjacency_phase(torch, np):
     """build_pair_adjacency against its plain version and an f64 oracle,
     then timed at the ZINC batch and at the CIFAR10 path's first batch
     (graphs of 140-159 nodes, each spanning two node blocks, so the batch
-    has off-diagonal pairs), in float32 and in the bf16 output mode the
-    bf16 paths run.  One entry per shape and dtype: `build_pair_adjacency`
-    at the ZINC batch, `build_pair_adjacency@cifar10` at the CIFAR10 one,
-    `build_pair_adjacency@bf16` and `build_pair_adjacency@cifar10-bf16`
-    the same in bf16."""
+    has off-diagonal pairs), in float32 and in the bf16 and f16 output
+    modes the bf16 and fp16 paths run.  One entry per shape and dtype:
+    `build_pair_adjacency` at the ZINC batch, `build_pair_adjacency@cifar10`
+    at the CIFAR10 one, `build_pair_adjacency@bf16` and
+    `build_pair_adjacency@cifar10-bf16` the same in bf16,
+    `build_pair_adjacency@fp16` and `build_pair_adjacency@cifar10-fp16` in
+    f16."""
     from dgn_tpu_torch.data.synthetic import synthetic_zinc
     from dgn_tpu_torch.graph import GraphData
     from dgn_tpu_torch.ops import adjacency
@@ -542,9 +593,11 @@ def adjacency_phase(torch, np):
 
     cases = [("zinc_main_f32", w_zinc, zinc.mxu, torch.float32),
              ("zinc_main_bf16", w_zinc, zinc.mxu, torch.bfloat16),
+             ("zinc_main_f16", w_zinc, zinc.mxu, torch.float16),
              ("sbm_multiblock_f32", w_sbm, lay.to(dev), torch.float32),
              ("cifar10_main_f32", w_cifar, cifar.mxu, torch.float32),
              ("cifar10_main_bf16", w_cifar, cifar.mxu, torch.bfloat16),
+             ("cifar10_main_f16", w_cifar, cifar.mxu, torch.float16),
              ("ep_zinc_shard_f32", w_ep, ep.mxu, torch.float32)]
     errs = {}
     for name, w, layout, dt in cases:
@@ -553,7 +606,7 @@ def adjacency_phase(torch, np):
         plain = adjacency.build_pair_adjacency_plain(w, layout, dt)
         oracle = adjacency.build_pair_adjacency_plain(
             w.double().cpu(), layout.to("cpu"))
-        tol = F32_TOL if dt == torch.float32 else BF16_TOL
+        tol = kernel_tol(dt)
         e_plain = (got.float() - plain.float()).abs().max().item()
         e_oracle = (got.cpu().double() - oracle).abs().max().item()
         print(f"kernel build_pair_adjacency {name}: out {tuple(got.shape)} "
@@ -567,7 +620,7 @@ def adjacency_phase(torch, np):
     common = {"route": "cuda", "source": "dgn_tpu_torch/ops/csrc/adjacency.cu",
               "replaces": "dgn_tpu/ops/pallas/adjacency.py:83",
               "launches": None}
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     return [dict(common, name="build_pair_adjacency", path="zinc",
                  max_abs_err=errs["zinc_main_f32"],
                  **time_adjacency(torch, w_zinc, zinc.mxu, "zinc", f32)),
@@ -581,6 +634,13 @@ def adjacency_phase(torch, np):
                  path="cifar10-bf16", max_abs_err=errs["cifar10_main_bf16"],
                  **time_adjacency(torch, w_cifar, cifar.mxu, "cifar10",
                                   bf16)),
+            dict(common, name="build_pair_adjacency@fp16", path="zinc-fp16",
+                 max_abs_err=errs["zinc_main_f16"],
+                 **time_adjacency(torch, w_zinc, zinc.mxu, "zinc", f16)),
+            dict(common, name="build_pair_adjacency@cifar10-fp16",
+                 path="cifar10-fp16", max_abs_err=errs["cifar10_main_f16"],
+                 **time_adjacency(torch, w_cifar, cifar.mxu, "cifar10",
+                                  f16)),
             dict(common, name="build_pair_adjacency@ep-zinc",
                  path="ep-zinc-gloo2/rank0",
                  max_abs_err=errs["ep_zinc_shard_f32"],
@@ -702,9 +762,11 @@ def extremes_phase(torch, np):
     and autograd backward) and an f64 oracle, at F = 70 and at a tower's
     F = 14, then timed at the HIV batch (128 synthetic ogbg-molhiv graphs)
     and at one PCBA micro-batch (1024 synthetic ogbg-molpcba graphs of a
-    2048-graph batch), F = 70.  One
-    entry per kernel and shape: `segment_extremes_fwd`/`_bwd` at the HIV
-    batch, `segment_extremes_fwd@pcba`/`_bwd@pcba` at the PCBA one."""
+    2048-graph batch) and at rank 0's shard of an HIV batch at 2
+    edge-parallel ranks, F = 70.  One entry per kernel and shape:
+    `segment_extremes_fwd`/`_bwd` at the HIV batch,
+    `segment_extremes_fwd@pcba`/`_bwd@pcba` at the PCBA one and
+    `segment_extremes_fwd@ep-hiv`/`_bwd@ep-hiv` at the shard."""
     from dgn_tpu_torch.data.synthetic import synthetic_ogb_mol
     from dgn_tpu_torch.graph import GraphData
     from dgn_tpu_torch.ops import extremes
@@ -785,25 +847,21 @@ def extremes_phase(torch, np):
     common = {"route": "cuda", "source": "dgn_tpu_torch/ops/csrc/extremes.cu",
               "launches": None}
     out = []
+    # the last: an edge-parallel rank's shard, its [own | halo] node blocks,
+    # of which the halo ones take no edge
     for path, suffix, case, times in (
             ("hiv", "", "hiv_main_f70",
              time_extremes(torch, np, hiv, ge_hiv, "hiv")),
             ("pcba", "@pcba", "pcba_micro_f70",
-             time_extremes(torch, np, pcba, ge_pcba, "pcba micro"))):
+             time_extremes(torch, np, pcba, ge_pcba, "pcba micro")),
+            ("ep-hiv-gloo2/rank0", "@ep-hiv", "ep_hiv_shard_f70",
+             time_extremes(torch, np, hiv_ep, ge_ep, "ep-hiv shard"))):
         for i, (name, replaces) in enumerate(
                 (("segment_extremes_fwd", "dgn_tpu/ops/extremes.py:200"),
                  ("segment_extremes_bwd", "dgn_tpu/ops/extremes.py:173"))):
             out.append(dict(common, name=name + suffix, replaces=replaces,
                             path=path, max_abs_err=errs[case][i],
                             **times[i]))
-    # the forward at an edge-parallel rank's shard: its [own | halo] node
-    # blocks, of which the halo ones take no edge
-    out.append(dict(common, name="segment_extremes_fwd@ep-hiv",
-                    replaces="dgn_tpu/ops/extremes.py:200",
-                    path="ep-hiv-gloo2/rank0",
-                    max_abs_err=errs["ep_hiv_shard_f70"][0],
-                    **time_extremes(torch, np, hiv_ep, ge_ep,
-                                    "ep-hiv shard")[0]))
     return out
 
 
@@ -1098,13 +1156,14 @@ def cpu_vs_card(torch, task, cfg, ds, params, batch):
     for gb, a, b in zip(micros, s_cpu, s_gpu):
         m = gb.node_mask if task == "sbm" else gb.graph_mask
         pairs.append((a[m], b.cpu()[m]))
-    bf16 = cfg.compute_dtype == "bfloat16"
+    lowp = cfg.torch_compute_dtype() is not None
     what = (f"one {task} step over {len(micros)} packed batch(es), "
             f"augmentation {'on' if aug else 'off'}"
-            f"{', compute_dtype bfloat16' if bf16 else ''}")
-    if bf16:
+            f"{f', compute_dtype {cfg.compute_dtype}' if lowp else ''}")
+    if lowp:
         # the same step in float32 on the card, from the same weights: how
-        # far bf16 moves the scores, beside the CPU-vs-card difference
+        # far the compute dtype moves the scores, beside the CPU-vs-card
+        # difference
         model_32, _ = run.build_model(
             task, dataclasses.replace(cfg, compute_dtype=None), ds,
             torch.Generator().manual_seed(41))
@@ -1115,13 +1174,12 @@ def cpu_vs_card(torch, task, cfg, ds, params, batch):
         for gb, b, c in zip(micros, s_gpu, s_32):
             m = gb.node_mask if task == "sbm" else gb.graph_mask
             d_32 = max(d_32, (b.cpu()[m] - c.cpu()[m]).abs().max().item())
-        what += (f"; the card's bf16 scores differ from its float32 ones "
-                 f"by up to {d_32:.3g}")
+        what += (f"; the card's {cfg.compute_dtype} scores differ from its "
+                 f"float32 ones by up to {d_32:.3g}")
     check_step(torch, what, l_cpu, l_gpu, pairs,
                param_report(torch, model_cpu, model_gpu, params.init_lr),
                kinks_crossed(torch, cpu_calls, card_calls),
-               *((BF16_STEP_RTOL, BF16_STEP_ATOL) if bf16
-                 else (STEP_RTOL, STEP_ATOL)))
+               *STEP_TOL[cfg.compute_dtype])
 
 
 def check_step(torch, what: str, l_cpu, l_gpu, pairs, params_line: str,
@@ -1129,7 +1187,7 @@ def check_step(torch, what: str, l_cpu, l_gpu, pairs, params_line: str,
                atol: float = STEP_ATOL) -> None:
     """Prints and checks a CPU-vs-card step: the loss at rtol, each (CPU,
     card) pair of score tensors at rtol / atol (STEP_RTOL / STEP_ATOL in
-    float32)."""
+    float32; STEP_TOL under a compute dtype)."""
     d_scores = max((a - b).abs().max().item() for a, b in pairs)
     d_loss = abs(float(l_cpu) - float(l_gpu))
     print(f"cpu vs cuda, {what}: |loss diff| {d_loss:.3g} (loss "
@@ -1201,14 +1259,18 @@ def flat_vs_block(torch, task, net, ds, params):
 
 
 def sibling(path: TrainPath):
-    """The float32 path a bf16 path repeats (its key without -bf16), or
-    None."""
-    return path.key[:-len("-bf16")] if path.key.endswith("-bf16") else None
+    """The float32 path a bf16 or fp16 path repeats (its key without the
+    suffix), or None."""
+    for suffix in ("-bf16", "-fp16"):
+        if path.key.endswith(suffix):
+            return path.key[:-len(suffix)]
+    return None
 
 
 def check_blocks(torch, key: str, net, batch) -> None:
     """The adjacency blocks the model builds for the batch on the card are
-    in the config's compute dtype (bf16 under compute_dtype bfloat16)."""
+    in the config's compute dtype (bf16 or f16 under compute_dtype
+    bfloat16 or float16)."""
     from dgn_tpu_torch.models.dgn_net import edge_context_for
     gb = (batch[0] if isinstance(batch, list) else batch).to(DEVICE)
     with torch.no_grad():
@@ -1223,11 +1285,13 @@ def check_blocks(torch, key: str, net, batch) -> None:
 def training_phase(torch):
     """Every path of PATHS through the entry point, each path's step, and
     each path's CPU-vs-card step (and the softmax check on ZINC's batch);
-    a bf16 path's launches must equal its float32 sibling's, and its
-    blocks must be bf16.  Returns ({path: launches}, {path: net config})."""
+    a bf16 or fp16 path's launches must equal its float32 sibling's, and
+    its blocks must be in its compute dtype.  Returns ({path: launches},
+    {path: net config})."""
     out, nets, figures = {}, {}, {}
     for path in PATHS:
         key = path.key
+        t_path = time.time()
         report, out[key], peak = drive_path(torch, path)
         sib = sibling(path)
         if sib is not None and out[key] != out[sib]:
@@ -1270,6 +1334,7 @@ def training_phase(torch):
             flat_vs_block(torch, cfg.task, model.cfg, ds, p)
         del ds, model, trainer, loaders, batches
         torch.cuda.empty_cache()
+        print(f"path {key}: {time.time() - t_path:.1f}s in all")
     return out, nets
 
 
@@ -1528,8 +1593,8 @@ def write_real_files() -> float:
     data = str(REAL_DATA)
     real_files.write_zinc(data, REAL_SIZES, seed=1)
     real_files.write_ogb(data, "HIV", OGB_GRAPHS, seed=2)
-    # the reader keeps the last len // 10 train images for val: 1137
-    # images leave 1024 to train on
+    # the reader keeps the last len // 10 train images for val: 568
+    # images leave 512 to train on
     n_images = next(n for n in range(REAL_SIZES["train"], 2 * REAL_SIZES[
         "train"] + 10) if n - n // 10 == REAL_SIZES["train"])
     real_files.write_superpixels(
@@ -1757,15 +1822,17 @@ def real_phase(torch, np):
 # The multi-rank phases (data and edge parallelism) on one card: NCCL
 # refuses two ranks on one GPU, so the 2-rank runs are gloo ranks that share
 # cuda:0 (gloo all-reduces and all-to-alls CUDA tensors and gathers CPU
-# ones); the 1-rank runs are NCCL.  Full width, 8 train batches of 128
-# graphs per path (PATTERN's 4096 gives 1024 train graphs, load_sbm keeps
-# n // 4)
+# ones); the 1-rank runs are NCCL.  Full width, 4 train batches of 128
+# graphs per path (PATTERN's 2048 gives 512 train graphs, load_sbm keeps
+# n // 4), 8 on ep-hiv, whose planted exchange fault is gated on the halo
+# rows of its first batch (EXCHANGE_FAULT_GATED).  (8 on every path until
+# the fp16 paths came: cut to keep the script's time.)
 PATTERN = "SBMs_node_clustering_DGN_PATTERN.json"
-DP_PATHS = (TrainPath("dp-zinc", ZINC, 0, 1024),
-            TrainPath("dp-hiv", HIV, 4, 1024))
-EP_PATHS = (TrainPath("ep-zinc", ZINC, 0, 1024),
+DP_PATHS = (TrainPath("dp-zinc", ZINC, 0, 512),
+            TrainPath("dp-hiv", HIV, 4, 512))
+EP_PATHS = (TrainPath("ep-zinc", ZINC, 0, 512),
             TrainPath("ep-hiv", HIV, 4, 1024),
-            TrainPath("ep-pattern", PATTERN, 0, 4096))
+            TrainPath("ep-pattern", PATTERN, 0, 2048))
 # (backend, ranks) of each path's runs
 VARIANTS = {"dp-zinc": (("nccl", 1), ("gloo", 2)),
             "dp-hiv": (("nccl", 1), ("gloo", 2)),
@@ -2470,14 +2537,21 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     print(f"card: {card_line()}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}")
-    # the bf16 block products (ops/mxu.py) need torch.bmm's out_dtype on
-    # bf16 operands
-    ones = torch.ones((1, 2, 2), device=DEVICE, dtype=torch.bfloat16)
-    print(f"torch.bmm(bf16, bf16, out_dtype=float32): "
-          f"{torch.bmm(ones, ones, out_dtype=torch.float32).dtype}")
+    # the bf16 and f16 block products (ops/mxu.py) need torch.bmm's
+    # out_dtype on bf16 and f16 operands, accumulating in float32: 2049 =
+    # 2^11 + 1 is exact in float32 and not in either 16-bit type
+    for name, dt in (("bf16", torch.bfloat16), ("f16", torch.float16)):
+        a = torch.ones((1, 1, 2049), device=DEVICE, dtype=dt)
+        got = torch.bmm(a, a.transpose(1, 2), out_dtype=torch.float32)
+        print(f"torch.bmm({name}, {name}, out_dtype=float32): {got.dtype}, "
+              f"2049 ones summed to {got.item():g}")
+        if got.dtype != torch.float32 or got.item() != 2049:
+            fail(f"torch.bmm on {name} operands does not accumulate and "
+                 "return float32")
 
     from dgn_tpu_torch.ops import cuda_build
     t = time.time()

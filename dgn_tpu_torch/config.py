@@ -189,8 +189,9 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--layout", type=str, default=None,
                     choices=["auto", "flat", "mxu"])
     ap.add_argument("--compute_dtype", type=str, default=None,
-                    help="bfloat16: the block layout's products on bf16 "
-                         "operands, f32 accumulation (default float32)")
+                    help="bfloat16 or float16: the block layout's products "
+                         "on operands rounded to it, f32 accumulation "
+                         "(default float32)")
     ap.add_argument("--geometry", type=str, default=None,
                     choices=["typical", "worst"])
     ap.add_argument("--n_buckets", type=int, default=None,

@@ -34,17 +34,16 @@ The positional encoding is the batch's `pos_enc` where it carries one
 eig[:, 1:P+1] of the batch.  Its Linear takes the width that slice has,
 min(P, k_eig - 1); flax infers it, here the caller passes it (pos_enc_in).
 
-compute_dtype "bfloat16" (`--compute_dtype`) rounds the block layout's
-edge stage as dgn_tpu does: the adjacency blocks are built in bfloat16 (the
-CUDA kernel's bf16 output mode on the card) and every layer's products,
-gathers and scatters take bfloat16-rounded operands with float32
-accumulation (ops/mxu.py).  None and "float32" run float32 throughout.
+compute_dtype "bfloat16" or "float16" (`--compute_dtype`) rounds the block
+layout's edge stage as dgn_tpu does: the adjacency blocks are built in that
+dtype (the CUDA kernel's bf16 or f16 output mode on the card) and every
+layer's products, gathers and scatters take operands rounded to it with
+float32 accumulation (ops/mxu.py).  None and "float32" run float32
+throughout; the flat layout rounds nothing.
 
 `DGNConfig` keeps the reference's full field set so the same JSON configs
-load; `DGNModel` raises NotImplementedError for any value the port does not
-cover yet (a compute_dtype other than float32 and bfloat16, which the
-adjacency kernel cannot write) instead of silently running something
-else.  bn_axis ("dp", "ep") makes every batch norm a sync batch norm over
+load; `DGNModel` raises ValueError for a compute_dtype it does not know
+instead of silently running something else.  bn_axis ("dp", "ep") makes every batch norm a sync batch norm over
 the ranks of the mesh that nn.bind_mesh gives the model (parallel/dp.py,
 parallel/halo.py).  On an edge-partitioned rank's batch (gb.halo) the
 halo rows are refreshed before each layer unless the layer pulls them
@@ -66,6 +65,9 @@ from ..ops import aggregators as agg_ops
 from ..ops import scalers as scaler_ops
 from .encoders import AtomEncoder, BondEncoder
 from .readout import graph_readout
+
+# the low-precision compute dtypes, as a config names them
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,20 +113,21 @@ class DGNConfig:
         return tuple(scaler_ops.parse_names(self.scalers))
 
     def torch_compute_dtype(self) -> Optional[torch.dtype]:
-        """compute_dtype as the layers take it: torch.bfloat16, or None for
-        float32 (None or "float32", which round nothing)."""
+        """compute_dtype as the layers take it: torch.bfloat16,
+        torch.float16, or None for float32 (None or "float32", which round
+        nothing)."""
         if self.compute_dtype in (None, "float32"):
             return None
-        if self.compute_dtype == "bfloat16":
-            return torch.bfloat16
-        raise NotImplementedError(
-            f"DGNConfig.compute_dtype={self.compute_dtype!r} is not ported "
-            "(float32 or bfloat16: the adjacency kernel writes no other "
-            "dtype)")
+        if self.compute_dtype in COMPUTE_DTYPES:
+            return COMPUTE_DTYPES[self.compute_dtype]
+        raise ValueError(
+            f"DGNConfig.compute_dtype={self.compute_dtype!r}: not one of "
+            "None, 'float32', 'bfloat16', 'float16'")
 
 
 def check_ported(cfg: DGNConfig) -> None:
-    """Raise NotImplementedError for a configuration the port lacks."""
+    """Raise ValueError (KeyError for an aggregator) for a configuration
+    the port does not know."""
     if cfg.type_net not in ("simple", "complex", "towers"):
         raise ValueError(f"unknown type_net {cfg.type_net!r}")
     if cfg.node_encoder not in ("embedding", "atom", "linear"):
@@ -148,8 +151,8 @@ def edge_context_for(gb: GraphBatch, cfg: DGNConfig) -> agg_ops.EdgeContext:
     """The EdgeContext DGNModel attaches.  It depends only on (eig, edges,
     layout), not on the parameters, so fixed batches can reuse it.  The
     flat per-edge path takes the directional normalizers (need_norms); the
-    adjacency blocks come in the config's compute dtype (bfloat16 or
-    float32)."""
+    adjacency blocks come in the config's compute dtype (bfloat16, float16
+    or float32)."""
     decomposed = decomposes(cfg)
     return agg_ops.build_edge_context(
         gb.eig, gb.src, gb.dst, gb.edge_mask, gb.in_degree,

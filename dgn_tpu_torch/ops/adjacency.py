@@ -20,7 +20,8 @@ from typing import Optional
 import torch
 
 TILE = 128
-_OUT_DTYPES = (torch.float32, torch.bfloat16)
+# the output dtypes, in the order of the C interface's out_kind
+_OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def build_pair_adjacency_plain(weights: torch.Tensor, layout,
@@ -28,7 +29,8 @@ def build_pair_adjacency_plain(weights: torch.Tensor, layout,
                                ) -> torch.Tensor:
     """The plain PyTorch version: zeros, then one accumulating index_put_.
 
-    Accumulates in f32 (f64 for f64 weights) and casts once."""
+    Accumulates in f32 (f64 for f64 weights) and casts once, so a bf16 or
+    f16 block entry is its f32 sum rounded once."""
     k, e_pad = weights.shape
     dt = out_dtype if out_dtype is not None else weights.dtype
     acc_dt = torch.float64 if weights.dtype == torch.float64 else torch.float32
@@ -88,7 +90,7 @@ def _launch(weights: torch.Tensor, layout, out_dtype) -> torch.Tensor:
                          f"multiple of {TILE}, got {tuple(weights.shape)}")
     if out_dtype not in _OUT_DTYPES:
         raise ValueError(f"build_pair_adjacency: out_dtype {out_dtype} is not "
-                         "float32 or bfloat16")
+                         "float32, bfloat16 or float16")
     n_pairs = layout.n_pairs
     if n_pairs <= 0:
         raise ValueError("build_pair_adjacency: layout has no pairs")
@@ -114,7 +116,7 @@ def _launch(weights: torch.Tensor, layout, out_dtype) -> torch.Tensor:
                  layout.local_dst.data_ptr(),
                  layout.pair_real_chunk_order.data_ptr(),
                  layout.pair_chunk_start.data_ptr(), out.data_ptr(),
-                 k, e_pad, n_pairs, int(out_dtype == torch.bfloat16), stream)
+                 k, e_pad, n_pairs, _OUT_DTYPES.index(out_dtype), stream)
     if err != 0:
         raise RuntimeError("build_pair_adjacency kernel launch failed: "
                            f"{errstr(err).decode()} (cudaError {err})")
@@ -127,8 +129,8 @@ def build_pair_adjacency(weights: torch.Tensor, layout,
                          ) -> torch.Tensor:
     """[K, E] edge weights -> [P, K, TILE, TILE] adjacency blocks.
 
-    CUDA tensors launch the kernel (f32 weights; f32 or bf16 output) or
-    raise; CPU tensors take build_pair_adjacency_plain.  Pad edges must
+    CUDA tensors launch the kernel (f32 weights; f32, bf16 or f16
+    output, f32 accumulation) or raise; CPU tensors take build_pair_adjacency_plain.  Pad edges must
     weigh 0: the kernel walks only each pair's chunks that hold a real edge
     (layout.pair_real_chunk_order from layout.pair_chunk_start), which
     gives the plain version's result exactly when an all-pad chunk adds

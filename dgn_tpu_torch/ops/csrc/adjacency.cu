@@ -2,14 +2,14 @@
 //
 // Replaces the Pallas TPU kernel dgn_tpu/ops/pallas/adjacency.py:83
 // (build_pair_adjacency): [K, E] per-family f32 edge weights become
-// [P, K, 128, 128] blocks, f32 or bf16, with W[p, k, i, j] = sum of w[k, e]
+// [P, K, 128, 128] blocks, f32, bf16 or f16, with W[p, k, i, j] = sum of w[k, e]
 // over the edges e of pair p whose local_src is i and local_dst is j.  Pad
 // edges carry weight 0; pad pairs come out as zeros.
 //
 // Bound: bytes, and almost all of them the output.  At the ZINC batch
-// (P=64, K=3) the kernel writes 12.6 MB in f32 (6.3 MB in bf16) and reads
-// about 0.2 MB, so it cannot take less than 3.8 us (1.9 us) at the H100
-// SXM's 3.35 TB/s.  Every output byte is written once, coalesced, in
+// (P=64, K=3) the kernel writes 12.6 MB in f32 (6.3 MB in bf16 or f16) and
+// reads about 0.2 MB, so it cannot take less than 3.8 us (1.9 us) at the
+// H100 SXM's 3.35 TB/s.  Every output byte is written once, coalesced, in
 // 16-byte stores.
 //
 // The first design (one CTA per (pair, family) block, 64 KB of shared
@@ -49,15 +49,18 @@
 // Precision.  Accumulation is f32 in shared memory (atomicAdd).  For simple
 // graphs each (pair, i, j) cell receives at most one edge, so the result is
 // exact.  With multigraph edges the order of the f32 additions into one cell
-// depends on the atomics' timing and varies from run to run.  bf16 output
-// rounds each f32 sum once (__floats2bfloat162_rn).
+// depends on the atomics' timing and varies from run to run.  bf16 and f16
+// output round each f32 sum once, to nearest even (__floats2bfloat162_rn,
+// __floats2half2_rn); f16 overflows to inf past 65504, as a cast does.
 //
 // Interface: plain C, loaded with ctypes (dgn_tpu_torch/ops/adjacency.py),
-// which checks shapes, types, devices and 16-byte alignment.  The launch
+// which checks shapes, types, devices and 16-byte alignment; out_kind picks
+// the output dtype (0 f32, 1 bf16, 2 f16).  The launch
 // goes on the caller's stream; the function returns cudaGetLastError() so
 // a refused launch is reported.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,31 +74,36 @@ constexpr int kSlabCells = kRows * kTile;      // 4096 f32 = 16 KB
 constexpr int kEdgesPerThread = 4;             // one 16-byte load per array
 constexpr int kChunksPerPass = kThreads * kEdgesPerThread / kTile;  // 8
 
-// 16 bytes of output from the accumulator: 4 f32 or 8 bf16 cells.
+// Two cells rounded to nearest even into one 32-bit word of a 16-bit type.
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16, float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack2(__half, float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 16 bytes of output from the accumulator: 8 cells of a 16-bit type (bf16,
+// f16), or 4 f32 cells.
 template <typename OutT>
-struct Out;
+struct Out {
+  static constexpr int kCells = 8;
+  __device__ static uint4 pack(const float* acc) {
+    const float4 a = reinterpret_cast<const float4*>(acc)[0];
+    const float4 b = reinterpret_cast<const float4*>(acc)[1];
+    const OutT t{};
+    return make_uint4(pack2(t, a.x, a.y), pack2(t, a.z, a.w),
+                      pack2(t, b.x, b.y), pack2(t, b.z, b.w));
+  }
+};
 
 template <>
 struct Out<float> {
   static constexpr int kCells = 4;
   __device__ static uint4 pack(const float* acc) {
     return *reinterpret_cast<const uint4*>(acc);
-  }
-};
-
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <>
-struct Out<__nv_bfloat16> {
-  static constexpr int kCells = 8;
-  __device__ static uint4 pack(const float* acc) {
-    const float4 a = reinterpret_cast<const float4*>(acc)[0];
-    const float4 b = reinterpret_cast<const float4*>(acc)[1];
-    return make_uint4(bf16x2(a.x, a.y), bf16x2(a.z, a.w), bf16x2(b.x, b.y),
-                      bf16x2(b.z, b.w));
   }
 };
 
@@ -196,16 +204,25 @@ int launch(const void* weights, const void* local_src, const void* local_dst,
 extern "C" int dgn_build_pair_adjacency(
     const void* weights, const void* local_src, const void* local_dst,
     const void* pair_real_chunk_order, const void* pair_chunk_start,
-    void* out, int n_fam, int n_edges, int n_pairs, int out_bf16,
+    void* out, int n_fam, int n_edges, int n_pairs, int out_kind,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_bf16) {
-    return launch<__nv_bfloat16>(weights, local_src, local_dst,
-                                 pair_real_chunk_order, pair_chunk_start, out,
-                                 n_fam, n_edges, n_pairs, s);
+  switch (out_kind) {
+    case 0:
+      return launch<float>(weights, local_src, local_dst,
+                           pair_real_chunk_order, pair_chunk_start, out,
+                           n_fam, n_edges, n_pairs, s);
+    case 1:
+      return launch<__nv_bfloat16>(weights, local_src, local_dst,
+                                   pair_real_chunk_order, pair_chunk_start,
+                                   out, n_fam, n_edges, n_pairs, s);
+    case 2:
+      return launch<__half>(weights, local_src, local_dst,
+                            pair_real_chunk_order, pair_chunk_start, out,
+                            n_fam, n_edges, n_pairs, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch<float>(weights, local_src, local_dst, pair_real_chunk_order,
-                       pair_chunk_start, out, n_fam, n_edges, n_pairs, s);
 }
 
 // The launch at these sizes: out[0] grid (1-D), out[1] threads per CTA,

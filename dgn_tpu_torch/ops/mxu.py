@@ -16,25 +16,39 @@ are plain `index_add_` on global indices, and the reference's
 `gather_src`/`gather_dst` (`block_gather`) are `gather` on the batch's
 global src/dst, which the layout's local indices reproduce.
 
-compute_dtype (a torch dtype, bfloat16 in practice; None = float32
+compute_dtype (a torch dtype, bfloat16 or float16; None = float32
 throughout).  The reference runs its block-layout products on operands
 rounded to compute_dtype with float32 accumulation and a float32 result,
 in the forward AND the backward product (`dgn_tpu/ops/mxu.py:364-450`).
-Plain autograd through `x.to(torch.bfloat16)` does not do that: the
-cotangent of a float32 result is not rounded, and a bfloat16 result rounds
-the sum.  So each primitive here is an autograd Function that rounds its
-operand on the way in and the incoming gradient on the way back:
+Plain autograd through `x.to(compute_dtype)` does not do that: the
+cotangent of a float32 result is not rounded, and a low-precision result
+rounds the sum.  So each primitive here is an autograd Function that
+rounds its operand on the way in and the incoming gradient on the way
+back:
   * pair_adj_matmul: the blocks and gp rounded, float32 accumulation (on
-    CUDA `torch.bmm(..., out_dtype=torch.float32)` on bfloat16 operands, on
-    the CPU the float32 product of the rounded operands); backward the
-    same with the rounded cotangent.  Each product of two bfloat16 values
-    is exact in float32, so the two routes differ only in summation order;
+    CUDA `torch.bmm(..., out_dtype=torch.float32)` on the low-precision
+    operands, on the CPU the float32 product of the rounded operands);
+    backward the same with the rounded cotangent.  A product of two
+    bfloat16 values has at most 16 significant bits and one of two
+    float16 values 22, within float32's 24 (and float16's range keeps its
+    products inside float32's), so each product is exact in float32 and
+    the two routes differ only in summation order;
   * block_scatter_sum / weighted_segment_sums: a float32 `index_add_` of
     the rounded data (the reference's one-hot product over a chunk), whose
     backward gathers the rounded cotangent;
   * gather: the rows of the rounded table; backward an `index_add_` of
     the rounded cotangent.
 graph_pool_sum and graph_broadcast never round, as in the reference.
+
+Overflow.  float16 tops out at 65504 (bfloat16 near 3e38): a value beyond
+it rounds to +-inf.  The gathers and scatters here move each row alone, so
+an inf stays in the rows that hold it (and a 0 weight times an inf row
+gives NaN only in the entry it multiplies).  The reference's one-hot
+products multiply every row of a chunk by every one-hot column, so one inf
+becomes NaN (0 * inf) across its chunk.  The port keeps its index gather
+and `index_add_` and does not reproduce that spread.  pair_adj_matmul is a
+real matmul in both packages and agrees: NaN where a block entry is 0, inf
+where it is not.
 """
 from __future__ import annotations
 

@@ -26,8 +26,9 @@ The training recipe of dgn_tpu/run.py:224-347:
     `out_dir/seed<s>` and `DIR/seed<s>`, and prints the reference's table
     row: `TEST <METRIC>: mean ± std (n/N seeds)` (np.std) and a
     `[dgn_tpu_torch] SEEDS {...}` line.
-`--compute_dtype bfloat16` runs the block layout's edge stage on bfloat16
-operands with float32 accumulation, as dgn_tpu does (models/dgn_net.py).
+`--compute_dtype bfloat16` or `float16` runs the block layout's edge stage
+on operands rounded to that dtype with float32 accumulation, as dgn_tpu
+does (models/dgn_net.py).
 
 Data parallelism (dgn_tpu/run.py:113-145,236-247; parallel/): `--n_devices
 N` (N > 1) spawns N ranks on this host, rank r on `cuda:r` over NCCL, or N
@@ -53,9 +54,10 @@ asks for the CPU (`--device cpu`); without a GPU and without that request
 the run stops with an error instead of running on the CPU.  At start the run
 turns TF32 off for matmuls and convolutions
 (torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 =
-False) and reduced-precision reductions off for bfloat16 matmuls
-(torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction =
-False): the reference accumulates in float32, and so does this port.
+False) and reduced-precision reductions off for bfloat16 and float16
+matmuls (torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+= allow_fp16_reduced_precision_reduction = False): the reference
+accumulates in float32, and so does this port.
 """
 from __future__ import annotations
 
@@ -101,8 +103,8 @@ def pad_geometry(graphs, batch_size: int, layout: str = "flat"):
 
 
 def check_ported(cfg) -> None:
-    """Raise NotImplementedError for run options the port lacks."""
-    cfg.net_params.torch_compute_dtype()     # float32 or bfloat16 only
+    """Raise ValueError for run options the port does not know."""
+    cfg.net_params.torch_compute_dtype()     # a compute_dtype it knows
 
 
 def pos_enc_width(np_cfg, graph) -> Optional[int]:
@@ -305,6 +307,7 @@ def _precision() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 
 def _banner(cfg, device, n_devices: int = 1, partition: str = "dp") -> None:

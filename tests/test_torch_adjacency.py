@@ -5,7 +5,8 @@ plain PyTorch version.  On the CPU the wrapper takes the plain version; it is
 held against the exact f64 scatter oracle (the one of
 tests/test_adjacency_kernel.py) and against the reference's Pallas kernel
 (interpret mode) and XLA lowering, on ZINC (K=3), multi-block SBM with real
-off-diagonal pairs (K=2), a single family (K=1), and bf16 output.
+off-diagonal pairs (K=2), a single family (K=1), and bf16 output (f16
+output: tests/test_torch_fp16.py).
 
 The kernel runs only on a GPU: its cases are marked `gpu`, skip without
 one, and import nothing of JAX, so on the card they run alone with
@@ -13,7 +14,8 @@ one, and import nothing of JAX, so on the card they run alone with
 
 Tolerances: f32 1e-6 — the scatter is exact for simple graphs (each cell
 gets at most one nonzero weight), so only the f64 oracle's last-bit
-differences remain; bf16 1e-2 — one rounding of each entry to bf16.
+differences remain; bf16 1e-2 and f16 1e-3 (rtol and atol) — one rounding
+of each entry, at most 2^-8 and 2^-11 of it.
 """
 from __future__ import annotations
 
@@ -55,6 +57,12 @@ def _weights(k, gb, seed):
     w = np.random.default_rng(seed).normal(
         size=(k, gb.num_edges_padded)).astype(np.float32)
     return w * np.asarray(gb.edge_mask, np.float32)   # pad edges weigh 0
+
+
+# the kernel's output dtypes and their tolerances (see the docstring)
+OUT_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+OUT_IDS = ["f32", "bf16", "f16"]
+TOL = {torch.float32: 1e-6, torch.bfloat16: 1e-2, torch.float16: 1e-3}
 
 
 def _has_off_diagonal(layout):
@@ -276,8 +284,7 @@ GPU_CASES = {
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES, ids=OUT_IDS)
 @pytest.mark.parametrize("case", list(GPU_CASES))
 def test_cuda_kernel_matches_plain_and_oracle(case, out_dtype):
     if not torch.cuda.is_available():
@@ -294,7 +301,7 @@ def test_cuda_kernel_matches_plain_and_oracle(case, out_dtype):
     torch.cuda.synchronize()
     assert tadj.build_pair_adjacency.launches == before + 1
     assert got.dtype == out_dtype and got.is_cuda
-    tol = 1e-6 if out_dtype == torch.float32 else 1e-2
+    tol = TOL[out_dtype]
     want = tadj.build_pair_adjacency_plain(wd, layout, out_dtype)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
@@ -340,7 +347,7 @@ def _pair_pad_4x():
     return _packed(graphs, n_pairs_pad=4 * n_covered)
 
 
-# name -> (batch, K); each runs in f32 and bf16
+# name -> (batch, K); each runs in f32, bf16 and f16
 LAYOUT_GPU_CASES = {
     "multigraph_k3": (lambda: _packed(_multigraph()), 3),
     "pair_pad_4x_k3": (_pair_pad_4x, 3),
@@ -352,8 +359,7 @@ LAYOUT_GPU_CASES = {
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES, ids=OUT_IDS)
 @pytest.mark.parametrize("case", list(LAYOUT_GPU_CASES))
 def test_cuda_kernel_layout_cases(case, out_dtype):
     """The kernel against the f64 oracle and the plain version on the
@@ -361,8 +367,8 @@ def test_cuda_kernel_layout_cases(case, out_dtype):
     (f32 within 1e-6 relative of the oracle and of the plain version: the
     atomics' order varies), a pair pad of 4x the covered pairs, K = 1, 3
     and 6, and the pad-only pair of a ZINC batch, whose block must be all
-    zeros.  Outside the multigraph, f32 and bf16 blocks equal the plain
-    version's exactly."""
+    zeros.  Outside the multigraph, f32, bf16 and f16 blocks equal the
+    plain version's exactly."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernel needs a GPU")
     make, k = LAYOUT_GPU_CASES[case]
@@ -387,7 +393,7 @@ def test_cuda_kernel_layout_cases(case, out_dtype):
     oracle = _oracle(w, lay)
     want = tadj.build_pair_adjacency_plain(wd, layout, out_dtype)
     want = want.float().cpu().numpy()
-    tol = 1e-6 if out_dtype == torch.float32 else 1e-2
+    tol = TOL[out_dtype]
     np.testing.assert_allclose(got.astype(np.float64), oracle, rtol=tol,
                                atol=tol)
     if case.startswith("multigraph"):

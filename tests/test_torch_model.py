@@ -45,6 +45,7 @@ from dgn_tpu_torch.models import DGNConfig as TConfig
 from dgn_tpu_torch.models import pcba_model as tpcba
 from dgn_tpu_torch.models import superpixels_model as tsp
 from dgn_tpu_torch.models import zinc_model as tzinc
+from dgn_tpu_torch.models.dgn_net import edge_context_for
 from dgn_tpu_torch.train.trainer import TrainParams as TParams
 from dgn_tpu_torch.train.trainer import Trainer as TTrainer
 
@@ -285,20 +286,30 @@ def test_readout_none_returns_node_embeddings(setup):
 
 
 @pytest.mark.parametrize("field,value", [("bn_axis", "dp"),
-                                         ("compute_dtype", "float16")])
+                                         ("compute_dtype", "float16"),
+                                         ("compute_dtype", "float8")])
 def test_unported_config_raises(field, value):
-    """float16 is not ported: building the model raises.  The sync batch
-    norm axis is: the model builds, and only a training forward pass with
-    no mesh bound to sum over raises (nn.bind_mesh)."""
+    """Every option the reference takes is ported.  float16, once refused,
+    builds a model whose adjacency blocks are float16 (its parity with
+    dgn_tpu is tests/test_torch_fp16.py); a dtype name the reference does
+    not run raises ValueError.  The sync batch norm axis: the model builds,
+    and only a training forward pass with no mesh bound to sum over raises
+    (nn.bind_mesh)."""
     cfg = dataclasses.replace(TConfig(hidden_dim=H, out_dim=H, L=L),
                               **{field: value})
-    if field != "bn_axis":
-        with pytest.raises(NotImplementedError):
+    if value == "float8":
+        with pytest.raises(ValueError, match="float16"):
             tzinc(cfg, torch.Generator().manual_seed(0))
         return
     model, _ = tzinc(cfg, torch.Generator().manual_seed(0))
     graphs = [tgraph.GraphData(**dataclasses.asdict(g))
               for g in jsyn.synthetic_zinc(4, seed=1)]
+    if field == "compute_dtype":
+        gb = tgraph.pack_graphs(graphs, mxu_layout=True)
+        assert edge_context_for(gb, cfg).adj.dtype == torch.float16
+        model.train()
+        assert torch.isfinite(model(gb)).all()
+        return
     model.eval()
     model(tgraph.pack_graphs(graphs))
     model.train()

@@ -84,13 +84,21 @@ def test_run_without_gpu_refuses_cpu_fallback():
 
 
 @pytest.mark.parametrize("flags", [["--n_buckets", "2"],
-                                   ["--compute_dtype", "float16"]])
+                                   ["--compute_dtype", "float16"],
+                                   ["--compute_dtype", "float8"]])
 def test_run_rejects_unported_options(flags, monkeypatch):
-    """float16 is refused; --n_buckets, refused until the bucketed loader
-    was ported, now runs, with a BucketedLoader for every split."""
-    if flags[0] != "--n_buckets":
-        with pytest.raises(NotImplementedError):
+    """Options once refused now run: --n_buckets, with a BucketedLoader
+    for every split, and --compute_dtype float16, to its final report;
+    a dtype name the reference does not run raises ValueError."""
+    if flags[-1] == "float8":
+        with pytest.raises(ValueError, match="float16"):
             trun.run(SMALL + ["--device", "cpu"] + flags)
+        return
+    if flags[-1] == "float16":
+        report = trun.run(SMALL + ["--device", "cpu"] + flags)
+        assert report["epochs_run"] == 1
+        for split in ("train", "val", "test"):
+            assert math.isfinite(report["final"][split]["mae"])
         return
     from dgn_tpu_torch.data.loader import BucketedLoader
     built, prepare = [], trun.prepare
