@@ -79,7 +79,7 @@ and no device line.  Phases, each of which fails the script:
    batches unchanged and finite; the extremes pair on HIV's block batch
    with NaN in every pad edge's lane gives the clean result, and the
    block layout's model output under poison is reported); profile_steps
-   writes a trace of 3 train steps;
+   writes a trace of 3 train steps that holds their 3 dgn.step ranges;
 7. real files: seeded dataset files in the reference's layouts
    (tests/real_files.py, docs/DATA.md) under out/chip_smoke_real/, trained
    through the entry point with --data_dir: zinc-real twice, with an empty
@@ -1511,11 +1511,16 @@ def recipe_phase(torch, np) -> None:
                                     batch)
     trace = trace_dir / "trace.json"
     size = trace.stat().st_size if trace.is_file() else 0
-    print(f"recipe: profile_steps wrote {trace} ({size} bytes) over 3 "
-          f"train steps, last loss {float(loss):.6f}; recipe phase "
-          f"{time.time() - t0:.1f}s")
+    ranges = ([e.get("name") for e in json.loads(trace.read_text())
+               ["traceEvents"]].count("dgn.step") if size else 0)
+    print(f"recipe: profile_steps wrote {trace} ({size} bytes, {ranges} "
+          f"dgn.step ranges) over 3 train steps, last loss "
+          f"{float(loss):.6f}; recipe phase {time.time() - t0:.1f}s")
     if size == 0 or not math.isfinite(float(loss)):
         fail("recipe: profile_steps wrote no trace")
+    if ranges != 3:
+        fail(f"recipe: profile_steps' trace holds {ranges} dgn.step ranges "
+             "for 3 steps")
 
 
 def poison_check(torch, np, observe, extremes, bucket_sizes_for,

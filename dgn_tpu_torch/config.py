@@ -206,6 +206,10 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--seeds", type=str, default=None,
                     help="comma-separated seeds, e.g. 41,42,43,44: one run "
                          "per seed and their mean ± std")
+    ap.add_argument("--trace_spans", action="store_true",
+                    help="record the program's spans and counters "
+                         "(observe.py) and add each train epoch's, per "
+                         "step, to its metrics.jsonl record as `spans`")
     # data and edge parallelism (parallel/): dgn_tpu's flags and defaults
     ap.add_argument("--n_devices", type=int, default=None,
                     help="ranks (default 1): rank r on cuda:r, or gloo "
@@ -227,8 +231,8 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 RUN_FLAGS = ("config", "device", "checkpoint", "resume", "seeds",
-             "n_devices", "partition", "multihost", "coordinator_address",
-             "num_processes", "process_id")
+             "trace_spans", "n_devices", "partition", "multihost",
+             "coordinator_address", "num_processes", "process_id")
 
 
 def config_from_args(argv=None) -> tuple:

@@ -9,7 +9,9 @@ layout (`layout="flat"`, the default, as in dgn_tpu) or the block one
 at its exact need ("escape").  With micro_batches=K each batch is yielded as
 a list of K packed micro-batches (the trainer accumulates their gradients
 into one step).  `BucketedLoader` (`--n_buckets K`) splits the graphs into
-K size classes, each packed at its own tight geometry.
+K size classes, each packed at its own tight geometry.  Spans (observe.py):
+`loader.shuffle` (the epoch's draw), `loader.pack` (one batch) and inside
+it `loader.escape` (the repack at the exact need).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from .. import observe
 from ..graph import (GraphBatch, GraphData, bucket_sizes_for,
                      mxu_bucket_sizes, mxu_pair_pad, mxu_pairs_needed,
                      pack_graphs, pack_requirements, round_up,
@@ -138,10 +141,11 @@ class BatchLoader:
             # a typical geometry is not a bound, and under the block layout
             # neither is the worst-case estimate
             self.n_escapes += 1
-            n_pad, e_pad, pair_pad = _escape_pad([batch], self.layout,
-                                                 self.n_pad, self.e_pad)
-            return _pack_at(batch, self.layout, n_pad, e_pad, self.g_pad,
-                            pair_pad)
+            with observe.span("loader.escape"):
+                n_pad, e_pad, pair_pad = _escape_pad([batch], self.layout,
+                                                     self.n_pad, self.e_pad)
+                return _pack_at(batch, self.layout, n_pad, e_pad, self.g_pad,
+                                pair_pad)
 
     def _pack_micros(self, batch) -> List[GraphBatch]:
         """batch (size-sorted under the block layout) -> K packed
@@ -155,25 +159,28 @@ class BatchLoader:
                              self.g_pad, self.pair_pad) for p in parts]
         except ValueError:
             self.n_escapes += 1
-        n_pad, e_pad, pair_pad = _escape_pad(parts, self.layout, self.n_pad,
-                                             self.e_pad)
-        return [_pack_at(p, self.layout, n_pad, e_pad, self.g_pad, pair_pad)
-                for p in parts]
+        with observe.span("loader.escape"):
+            n_pad, e_pad, pair_pad = _escape_pad(parts, self.layout,
+                                                 self.n_pad, self.e_pad)
+            return [_pack_at(p, self.layout, n_pad, e_pad, self.g_pad,
+                             pair_pad) for p in parts]
 
     def __iter__(self):
         if self._cached is not None:
             yield from self._cached
             return
         out = [] if self.cache else None
-        idx = np.arange(len(self.graphs))
-        if self.shuffle:
-            self.rng.shuffle(idx)
+        with observe.span("loader.shuffle"):
+            idx = np.arange(len(self.graphs))
+            if self.shuffle:
+                self.rng.shuffle(idx)
         bs = self.batch_size
         for i in range(0, len(idx), bs):
-            batch = _order_for_layout([self.graphs[j] for j in idx[i:i + bs]],
-                                      self.layout)
-            gb = (self._pack_one(batch) if self.micro_batches == 1
-                  else self._pack_micros(batch))
+            with observe.span("loader.pack"):
+                batch = _order_for_layout(
+                    [self.graphs[j] for j in idx[i:i + bs]], self.layout)
+                gb = (self._pack_one(batch) if self.micro_batches == 1
+                      else self._pack_micros(batch))
             if out is not None:
                 out.append(gb)
             yield gb
@@ -256,25 +263,29 @@ class BucketedLoader:
                 "geometry": list(self.geometry)}
 
     def __iter__(self):
-        plan = []       # (bucket, index array into that bucket)
-        for b, gs in enumerate(self.buckets):
-            idx = np.arange(len(gs))
+        with observe.span("loader.shuffle"):
+            plan = []       # (bucket, index array into that bucket)
+            for b, gs in enumerate(self.buckets):
+                idx = np.arange(len(gs))
+                if self.shuffle:
+                    self.rng.shuffle(idx)
+                plan += [(b, idx[i:i + self.batch_size])
+                         for i in range(0, len(idx), self.batch_size)]
             if self.shuffle:
-                self.rng.shuffle(idx)
-            plan += [(b, idx[i:i + self.batch_size])
-                     for i in range(0, len(idx), self.batch_size)]
-        if self.shuffle:
-            self.rng.shuffle(plan)
+                self.rng.shuffle(plan)
         for b, chunk in plan:
-            n_pad, e_pad = self.geometry[b]
-            batch = _order_for_layout([self.buckets[b][int(j)]
-                                       for j in chunk], self.layout)
-            try:
-                yield _pack_at(batch, self.layout, n_pad, e_pad, self.g_pad,
-                               self.pair_pads[b])
-            except ValueError:
-                self.n_escapes += 1
-                n_pad, e_pad, pair_pad = _escape_pad([batch], self.layout,
-                                                     n_pad, e_pad)
-                yield _pack_at(batch, self.layout, n_pad, e_pad, self.g_pad,
-                               pair_pad)
+            with observe.span("loader.pack"):
+                n_pad, e_pad = self.geometry[b]
+                batch = _order_for_layout([self.buckets[b][int(j)]
+                                           for j in chunk], self.layout)
+                try:
+                    gb = _pack_at(batch, self.layout, n_pad, e_pad,
+                                  self.g_pad, self.pair_pads[b])
+                except ValueError:
+                    self.n_escapes += 1
+                    with observe.span("loader.escape"):
+                        n_pad, e_pad, pair_pad = _escape_pad(
+                            [batch], self.layout, n_pad, e_pad)
+                        gb = _pack_at(batch, self.layout, n_pad, e_pad,
+                                      self.g_pad, pair_pad)
+            yield gb

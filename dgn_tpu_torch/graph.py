@@ -36,10 +36,14 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from . import observe
+
 _TILE = 128
 
 
 def _move(x, device):
+    if isinstance(x, torch.Tensor):
+        return observe.to_device(x, device)
     return None if x is None else x.to(device)
 
 
@@ -254,15 +258,17 @@ def pack_graphs(graphs: Sequence[GraphData], *,
     does): pack the edges with the C++ packer (runtime/); None uses it
     when it is built, True requires it (RuntimeError without it), False
     packs with numpy.  Both give the same arrays."""
-    if mxu_layout:
-        return _pack_graphs_mxu(graphs, n_pad=n_pad, e_pad=e_pad,
-                                g_pad=g_pad, k_eig=k_eig,
-                                n_pairs_pad=n_pairs_pad)
-    if native is None:
-        from .runtime import available
-        native = available()
-    pack = _pack_graphs_native if native else _pack_graphs_flat
-    return pack(graphs, n_pad=n_pad, e_pad=e_pad, g_pad=g_pad, k_eig=k_eig)
+    with observe.span("pack.arrays"):
+        if mxu_layout:
+            return _pack_graphs_mxu(graphs, n_pad=n_pad, e_pad=e_pad,
+                                    g_pad=g_pad, k_eig=k_eig,
+                                    n_pairs_pad=n_pairs_pad)
+        if native is None:
+            from .runtime import available
+            native = available()
+        pack = _pack_graphs_native if native else _pack_graphs_flat
+        return pack(graphs, n_pad=n_pad, e_pad=e_pad, g_pad=g_pad,
+                    k_eig=k_eig)
 
 
 def _tensors(x):
@@ -659,8 +665,9 @@ def _pack_graphs_mxu(graphs: Sequence[GraphData], *,
     in_degree = np.zeros((n_pad,), dtype=np.int32)
     np.add.at(in_degree, dst[edge_mask], 1)
 
-    layout = build_mxu_layout(src, dst, edge_mask, node_graph, node_mask,
-                              n_pad, g_pad, n_pairs_pad=n_pairs_pad)
+    with observe.span("pack.block_layout"):
+        layout = build_mxu_layout(src, dst, edge_mask, node_graph, node_mask,
+                                  n_pad, g_pad, n_pairs_pad=n_pairs_pad)
 
     t = _tensors
     return GraphBatch(

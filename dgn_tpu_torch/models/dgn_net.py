@@ -49,6 +49,11 @@ parallel/halo.py).  On an edge-partitioned rank's batch (gb.halo) the
 halo rows are refreshed before each layer unless the layer pulls them
 itself (dgn_tpu/models/dgn_net.py:167-186), and the readouts combine the
 ranks' partial pools (models/readout.py).
+
+Spans (observe.py) of a forward pass: `model.edge_context` (the context's
+build, the adjacency kernel's launch among it), `model.encode`,
+`model.layer_<i>` (the layer with its halo refresh and virtual node) and
+`model.readout`.
 """
 from __future__ import annotations
 
@@ -58,6 +63,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from .. import observe
 from ..graph import GraphBatch, halo_refresh
 from ..layers.dgn import VirtualNode, ep_fused_layout, make_dgn_layer
 from ..nn import Embedding, Linear, MLPReadout, dropout
@@ -208,6 +214,7 @@ class DGNModel(nn.Module):
                 self.embedding_e = BondEncoder(cfg.edge_dim, generator)
         self.use_vn = bool(cfg.virtual_node) \
             and cfg.virtual_node.lower() != "none"
+        self.layer_spans = tuple(f"model.layer_{i}" for i in range(cfg.L))
         in_dim = cfg.hidden_dim
         for i in range(cfg.L):
             last = i == cfg.L - 1
@@ -252,29 +259,35 @@ class DGNModel(nn.Module):
         torch.Generator on the model's device."""
         cfg = self.cfg
         if gb.edge_ctx is None:
-            gb = dataclasses.replace(gb, edge_ctx=edge_context_for(gb, cfg))
-        h = self.embedding_h(gb.node_feat)
-        h = dropout(h, cfg.in_feat_dropout, self.training, dropout_generator)
-        if cfg.pos_enc_dim > 0:
-            pe = gb.pos_enc if gb.pos_enc is not None \
-                else gb.eig[:, 1:cfg.pos_enc_dim + 1]
-            h = h + self.embedding_pos_enc(pe)
-        e = self.embedding_e(gb.edge_feat) if cfg.edge_feat else None
-        vn_h = h.new_zeros((gb.num_graphs_padded, cfg.hidden_dim))
+            with observe.span("model.edge_context"):
+                gb = dataclasses.replace(gb,
+                                         edge_ctx=edge_context_for(gb, cfg))
+        with observe.span("model.encode"):
+            h = self.embedding_h(gb.node_feat)
+            h = dropout(h, cfg.in_feat_dropout, self.training,
+                        dropout_generator)
+            if cfg.pos_enc_dim > 0:
+                pe = gb.pos_enc if gb.pos_enc is not None \
+                    else gb.eig[:, 1:cfg.pos_enc_dim + 1]
+                h = h + self.embedding_pos_enc(pe)
+            e = self.embedding_e(gb.edge_feat) if cfg.edge_feat else None
+            vn_h = h.new_zeros((gb.num_graphs_padded, cfg.hidden_dim))
         # an edge-partitioned batch: a decomposed layer on the split block
         # layout pulls its own halo (layers/dgn.py); otherwise the halo
         # rows are fetched anew before each layer
         refresh = gb.halo is not None and not (ep_fused_layout(gb)
                                                and decomposes(cfg))
         for i in range(cfg.L):
-            if refresh:
-                h = halo_refresh(h, gb.halo)
-            h = getattr(self, f"layer_{i}")(gb, h, dropout_generator, e)
-            if self.use_vn and i < cfg.L - 1:
-                vn_h, h = getattr(self, f"virtual_node_{i}")(
-                    gb, h, vn_h, dropout_generator)
+            with observe.span(self.layer_spans[i]):
+                if refresh:
+                    h = halo_refresh(h, gb.halo)
+                h = getattr(self, f"layer_{i}")(gb, h, dropout_generator, e)
+                if self.use_vn and i < cfg.L - 1:
+                    vn_h, h = getattr(self, f"virtual_node_{i}")(
+                        gb, h, vn_h, dropout_generator)
         if self.cfg.readout == "none":
             return h
-        if self.cfg.readout == "node":
-            return self.MLP_layer(h)
-        return self.MLP_layer(graph_readout(gb, h, self.cfg.readout))
+        with observe.span("model.readout"):
+            if self.cfg.readout == "node":
+                return self.MLP_layer(h)
+            return self.MLP_layer(graph_readout(gb, h, self.cfg.readout))

@@ -58,6 +58,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import observe
 from . import adjacency
 from . import segment
 from .segment import segment_sum
@@ -123,7 +124,7 @@ class MXULayout:
 
     def to(self, device) -> "MXULayout":
         return MXULayout(**{
-            f.name: (getattr(self, f.name).to(device)
+            f.name: (observe.to_device(getattr(self, f.name), device)
                      if isinstance(getattr(self, f.name), torch.Tensor)
                      else getattr(self, f.name))
             for f in dataclasses.fields(self)})

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import observe
 from ..graph import (GraphBatch, GraphData, bucket_sizes_for,
                      mxu_bucket_sizes, mxu_pair_pad, mxu_pairs_needed,
                      pack_graphs, pack_requirements, round_up)
@@ -173,8 +174,10 @@ class StackedLoader:
 
     def __iter__(self):
         for shards, geometry in self.super_batches():
-            gs, ghost = shards[self.rank]
-            yield self.pack_shard(gs, ghost, geometry)
+            with observe.span("loader.pack"):
+                gs, ghost = shards[self.rank]
+                gb = self.pack_shard(gs, ghost, geometry)
+            yield gb
 
 
 def rank_seeds(seed: int, rank: int) -> Tuple[int, int]:
@@ -270,10 +273,11 @@ class DataParallelTrainer(RankTrainer):
         """One data-parallel step on this rank's shard; returns the loss
         averaged over the ranks and this rank's scores."""
         loss, scores = super().train_step(gb, aug)
-        loss = loss.clone()
-        buffers = [b for b in self.model.buffers()
-                   if b.is_floating_point()]
-        self._all_reduce([loss] + buffers)
+        with observe.span("step.grad_sync"):
+            loss = loss.clone()
+            buffers = [b for b in self.model.buffers()
+                       if b.is_floating_point()]
+            self._all_reduce([loss] + buffers)
         return loss, scores
 
     @torch.no_grad()
@@ -314,13 +318,17 @@ class DataParallelTrainer(RankTrainer):
         view = types.SimpleNamespace(**dict(zip(fields, cat[1:])))
         return view, cat[0].numpy()
 
-    def train_epoch(self, loader):
+    def _train_epoch(self, loader):
         acc = _MetricAccumulator(self.task)
         escapes0 = getattr(loader, "n_escapes", 0)
         for gb in loader:
             loss, scores = self.train_step(gb)
-            view, s = self.gather_shards(gb, scores)
-            acc.add(view, s, float(loss))
+            with observe.span("epoch.readback"):
+                view, s = self.gather_shards(gb, scores)
+                value = float(loss)
+            with observe.span("epoch.account"):
+                acc.add(view, s, value)
+            observe.next_step()
         self._last_throughput = {}
         escapes = getattr(loader, "n_escapes", 0) - escapes0
         if escapes:

@@ -35,6 +35,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import observe
 from ..graph import (GraphBatch, GraphData, HaloSpec, _mxu_edge_arrange,
                      _tensors)
 from ..ops.mxu import TILE, build_mxu_layout_ep
@@ -348,10 +349,12 @@ class PartitionedLoader:
 
     def __iter__(self):
         for sel in self.batches():
-            yield partition_batch(sel, self.n_shards, self.rank,
-                                  g_pad=self.g_pad, axis=self.axis,
-                                  multiple=self.multiple,
-                                  layout=self.layout)
+            with observe.span("loader.pack"):
+                gb = partition_batch(sel, self.n_shards, self.rank,
+                                     g_pad=self.g_pad, axis=self.axis,
+                                     multiple=self.multiple,
+                                     layout=self.layout)
+            yield gb
 
 
 class EdgeParallelTrainer(RankTrainer):
@@ -408,28 +411,29 @@ class EdgeParallelTrainer(RankTrainer):
             node_labels=_gather_all(gb.node_labels, group))
         return _AllGather.apply(scores.contiguous(), group), view
 
-    def _forward(self, gb: GraphBatch, generator=None):
-        """(scores, view, loss) of this rank's shard of a batch."""
-        g = self.on_device(gb)
+    def _forward(self, g: GraphBatch, generator=None):
+        """(scores, view, loss) of this rank's shard of a batch, on the
+        device (on_device)."""
         scores, view = self.loss_view(g, self.model(g, generator))
         return scores, view, self.loss_fn(scores, view)
 
     def _train(self, gb: GraphBatch):
         """One Adam step; (loss, scores, view)."""
-        from ..train.optim import set_learning_rate
-        self.model.train()
-        set_learning_rate(self.optimizer, self.scheduler.lr)
-        self.optimizer.zero_grad(set_to_none=True)
-        scores, view, loss = self._forward(gb, self.dropout_generator)
-        (loss / self.mesh.size).backward()
-        self._reduce_grads()
-        self.optimizer.step()
-        return loss.detach(), scores.detach(), view
+        def passes():
+            with observe.span("step.h2d"):
+                g = self.on_device(gb)
+            with observe.span("step.forward"):
+                scores, view, loss = self._forward(g, self.dropout_generator)
+            with observe.span("step.backward"):
+                (loss / self.mesh.size).backward()
+            return loss.detach(), scores.detach(), view
+
+        return self._adam_step(passes)
 
     @torch.no_grad()
     def _eval(self, gb: GraphBatch):
         self.model.eval()
-        scores, view, loss = self._forward(gb)
+        scores, view, loss = self._forward(self.on_device(gb))
         return loss, scores, view
 
     def train_step(self, gb: GraphBatch, aug=None):
@@ -448,10 +452,14 @@ class EdgeParallelTrainer(RankTrainer):
         acc = _MetricAccumulator(self.task)
         for gb in loader:
             loss, scores, view = step(gb)
-            acc.add(view, scores.cpu().numpy(), float(loss))
+            with observe.span("epoch.readback"):
+                host, value = scores.cpu().numpy(), float(loss)
+            with observe.span("epoch.account"):
+                acc.add(view, host, value)
+            observe.next_step()
         return acc.result()
 
-    def train_epoch(self, loader):
+    def _train_epoch(self, loader):
         self._last_throughput = {}
         return self._epoch(loader, self._train)
 

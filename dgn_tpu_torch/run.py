@@ -25,7 +25,10 @@ The training recipe of dgn_tpu/run.py:224-347:
   * `--seeds 41,42,...` (`run_seeds`) runs `run_one` once per seed, each in
     `out_dir/seed<s>` and `DIR/seed<s>`, and prints the reference's table
     row: `TEST <METRIC>: mean ± std (n/N seeds)` (np.std) and a
-    `[dgn_tpu_torch] SEEDS {...}` line.
+    `[dgn_tpu_torch] SEEDS {...}` line;
+  * `--trace_spans` turns the span recorder of observe.py on for the run,
+    and each epoch record then carries the train epoch's spans and
+    counters per step (`spans`), which tools/report.py prints.
 `--compute_dtype bfloat16` or `float16` runs the block layout's edge stage
 on operands rounded to that dtype with float32 accumulation, as dgn_tpu
 does (models/dgn_net.py).
@@ -62,6 +65,7 @@ accumulates in float32, and so does this port.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -463,6 +467,7 @@ def run_one(cfg, args, device, mesh=None):
     snapshot per epoch), then the final train/val/test evaluation.  As a
     rank of mesh, only rank 0 prints and writes the stream (and the
     trainer saves only there); every rank restores."""
+    from . import observe
     from .observe import MetricStream
     from .train.checkpoint import Checkpointer
 
@@ -484,9 +489,11 @@ def run_one(cfg, args, device, mesh=None):
     stream = (MetricStream(os.path.join(cfg.out_dir, "metrics.jsonl"))
               if mesh is None or mesh.rank == 0 else None)
     try:
-        result = trainer.fit(loaders["train"], loaders["val"],
-                             loaders["test"], checkpointer=checkpointer,
-                             start_epoch=start_epoch, stream=stream)
+        with (observe.tracing() if args.trace_spans
+              else contextlib.nullcontext()):
+            result = trainer.fit(loaders["train"], loaders["val"],
+                                 loaders["test"], checkpointer=checkpointer,
+                                 start_epoch=start_epoch, stream=stream)
     finally:
         if stream is not None:
             stream.close()

@@ -5,7 +5,8 @@ The MetricStream (observe.py) writes one JSONL record per epoch with
 train/val/test metrics, lr, wall time, and throughput counters; dgn_tpu's
 stream has the same record shape, so this tool reads either package's.
 It condenses a stream into a convergence summary: the best-val epoch, the
-final metrics, the lr steps, a sampled curve and the epoch times.
+final metrics, the lr steps, a sampled curve and the epoch times, and,
+when the run recorded spans (`--trace_spans`), the last epoch's span table.
 
 Usage:
     python -m dgn_tpu_torch.tools.report out/seed41/metrics.jsonl [--key mae]
@@ -65,6 +66,7 @@ def summarize(rows: List[dict], key: Optional[str] = None,
               "lr": r["lr"]}
              for r in sampled]
     steady = [r["seconds"] for r in rows[1:]] or [rows[0]["seconds"]]
+    spans = {"spans": rows[-1]["spans"]} if "spans" in rows[-1] else {}
     return {
         "metric": key,
         "epochs": len(rows),
@@ -82,6 +84,7 @@ def summarize(rows: List[dict], key: Optional[str] = None,
         "throughput": {k: rows[-1][k] for k in
                        ("edges_per_s", "edge_padding_efficiency")
                        if k in rows[-1]},
+        **spans,
     }
 
 
@@ -108,7 +111,24 @@ def to_markdown(s: dict, title: str = "") -> str:
     for p in s["curve"]:
         out.append(f"| {p['epoch']} | {p['train']} | {p['val']} | "
                    f"{p['test']} | {p['lr']:.1e} |")
+    if "spans" in s:
+        out += span_table(s["spans"])
     return "\n".join(out) + "\n"
+
+
+def span_table(sp: dict) -> List[str]:
+    """The last epoch's spans (count, ms and self ms per step) and
+    counters, as markdown lines."""
+    out = ["", f"Spans of the last epoch, per step ({sp['steps']} steps):",
+           "", "| span | count | ms | self ms |", "|---|---|---|---|"]
+    for name, v in sp["spans"].items():
+        out.append(f"| {name} | {v['count']} | {v['ms_per_step']} | "
+                   f"{v['self_ms_per_step']} |")
+    if sp["counters"]:
+        out.append("")
+        out.append("counters: " + ", ".join(
+            f"{k} {v}" for k, v in sp["counters"].items()))
+    return out
 
 
 def main(argv=None):

@@ -36,9 +36,15 @@ efficiency (and the loader's pack escapes of the epoch, when any) in
 `_last_throughput`.  `fit` can snapshot the trainer after every epoch
 (train/checkpoint.py), start at a later epoch after a restore, and write
 one "epoch" record per epoch to an observe.MetricStream, with dgn_tpu's
-keys (dgn_tpu/train/trainer.py:282-336).  A KeyboardInterrupt ends the
-epoch loop and `fit` returns what it has, so the caller's final evaluation
-still runs, as in dgn_tpu.
+keys (dgn_tpu/train/trainer.py:282-336), and, while the recorder of
+observe.py is on, the train epoch's spans and counters per step
+(`spans`).  A KeyboardInterrupt ends the epoch loop and `fit` returns what
+it has, so the caller's final evaluation still runs, as in dgn_tpu.
+
+Spans (observe.py): `step` and inside it its phases (`_adam_step`), which
+the rank trainers' steps share; per batch of train_epoch `epoch.readback`
+(the scores and the loss to the host) and `epoch.account` (the metric
+accumulator and Throughput), then `epoch.finish`.
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .. import observe
 from ..graph import GraphBatch
 from ..ops import field
 from . import metrics as M
@@ -88,7 +95,7 @@ class AugDraws:
     distort: Optional[torch.Tensor] = None    # [N]
 
     def to(self, device) -> "AugDraws":
-        return AugDraws(*(None if t is None else t.to(device)
+        return AugDraws(*(None if t is None else observe.to_device(t, device)
                           for t in (self.rotate, self.flip, self.distort)))
 
 
@@ -190,34 +197,57 @@ class Trainer:
             # from the host batches, before they move to the device
             w = [float(self._loss_weight(g)) for g in micros]
             scales = [x / max(sum(w), 1.0) for x in w]
-        self.model.train()
-        set_learning_rate(self.optimizer, self.scheduler.lr)
-        self.optimizer.zero_grad(set_to_none=True)
-        if aug is None:
-            aug = draw_augmentation(micros[0].eig.shape, self.p,
-                                    self.aug_generator)
-        elif not augments(self.p):
+        if aug is not None and not augments(self.p):
             raise ValueError("augmentation draws for params that augment "
                              "nothing")
-        if aug is not None:
-            aug = aug.to(self.device)
-        losses, scores = [], []
-        for g, scale in zip(micros, scales):
-            g = g.to(self.device)
-            if aug is not None:
-                g = augment(g, aug, self.p)
-            s = self.model(g, self.dropout_generator)
-            loss = self.loss_fn(s, g)
-            if scale is not None:
-                loss = loss * scale
-            loss.backward()
-            losses.append(loss.detach())
-            scores.append(s.detach())
-        self._reduce_grads()
-        self.optimizer.step()
-        if not micro:
-            return losses[0], scores[0]
-        return torch.stack(losses).sum(), scores
+
+        def passes():
+            draws = aug
+            if draws is None:
+                draws = draw_augmentation(micros[0].eig.shape, self.p,
+                                          self.aug_generator)
+            if draws is not None:
+                with observe.span("step.h2d"):
+                    draws = draws.to(self.device)
+            losses, scores = [], []
+            for g, scale in zip(micros, scales):
+                with observe.span("step.h2d"):
+                    g = g.to(self.device)
+                with observe.span("step.forward"):
+                    if draws is not None:
+                        g = augment(g, draws, self.p)
+                    s = self.model(g, self.dropout_generator)
+                    loss = self.loss_fn(s, g)
+                    if scale is not None:
+                        loss = loss * scale
+                with observe.span("step.backward"):
+                    loss.backward()
+                losses.append(loss.detach())
+                scores.append(s.detach())
+            if not micro:
+                return losses[0], scores[0]
+            return torch.stack(losses).sum(), scores
+
+        return self._adam_step(passes)
+
+    def _adam_step(self, passes: Callable[[], Any]) -> Any:
+        """One Adam step at the scheduler's lr around passes(), which runs
+        the step's forward and backward passes and returns what the step
+        returns; the spans `step`, `step.optimizer` (zero_grad and the lr
+        before the passes, Adam's step after them) and `step.grad_sync`
+        (_reduce_grads).  passes() opens `step.h2d`, `step.forward` and
+        `step.backward` itself."""
+        with observe.span("step"):
+            with observe.span("step.optimizer"):
+                self.model.train()
+                set_learning_rate(self.optimizer, self.scheduler.lr)
+                self.optimizer.zero_grad(set_to_none=True)
+            out = passes()
+            with observe.span("step.grad_sync"):
+                self._reduce_grads()
+            with observe.span("step.optimizer"):
+                self.optimizer.step()
+        return out
 
     def _reduce_grads(self) -> None:
         """Between the backward passes and the optimizer step: nothing on
@@ -250,31 +280,40 @@ class Trainer:
 
     # ------------------------------------------------------------- epochs
     def train_epoch(self, loader) -> Dict[str, float]:
-        from ..observe import Throughput
+        """One epoch of train_step over loader (the recorder on for it
+        while a torch.profiler is active)."""
+        with observe.following_profiler():
+            return self._train_epoch(loader)
+
+    def _train_epoch(self, loader) -> Dict[str, float]:
         acc = _MetricAccumulator(self.task)
-        tp = Throughput()
+        tp = observe.Throughput()
         escapes0 = getattr(loader, "n_escapes", 0)
         for gb in loader:
             loss, scores = self.train_step(gb)
-            if isinstance(gb, (list, tuple)):
+            many = isinstance(gb, (list, tuple))
+            micros, scores = (gb, scores) if many else ([gb], [scores])
+            with observe.span("epoch.readback"):
+                host = [s.cpu().numpy() for s in scores]
+                value = float(loss)
+            with observe.span("epoch.account"):
                 # one loss per super-batch, recorded with its first micro
-                for k, (g, s) in enumerate(zip(gb, scores)):
-                    acc.add(g, s.cpu().numpy(), float(loss) if k == 0
-                            else None)
+                for k, (g, s) in enumerate(zip(micros, host)):
+                    acc.add(g, s, value if k == 0 else None)
                     tp.add_batch(g)
-            else:
-                acc.add(gb, scores.cpu().numpy(), float(loss))
-                tp.add_batch(gb)
-        r = tp.result()
-        self._last_throughput = {
-            "edges_per_s": round(r["edges_per_s"], 1),
-            "edge_padding_efficiency": round(r["edge_padding_efficiency"], 4),
-        }
-        # repacks of THIS epoch, not the loader's lifetime count
-        escapes = getattr(loader, "n_escapes", 0) - escapes0
-        if escapes:
-            self._last_throughput["pack_escapes"] = escapes
-        return acc.result()
+            observe.next_step()
+        with observe.span("epoch.finish"):
+            r = tp.result()
+            self._last_throughput = {
+                "edges_per_s": round(r["edges_per_s"], 1),
+                "edge_padding_efficiency": round(
+                    r["edge_padding_efficiency"], 4),
+            }
+            # repacks of THIS epoch, not the loader's lifetime count
+            escapes = getattr(loader, "n_escapes", 0) - escapes0
+            if escapes:
+                self._last_throughput["pack_escapes"] = escapes
+            return acc.result()
 
     def evaluate(self, loader) -> Dict[str, float]:
         """Each micro-batch of a list is evaluated as a batch of its own."""
@@ -296,7 +335,8 @@ class Trainer:
         train/checkpoint.Checkpointer that snapshots the trainer after each
         epoch; stream: an observe.MetricStream that receives one "epoch"
         record per epoch (epoch, lr, train/val/test metrics, seconds,
-        edges_per_s, edge_padding_efficiency)."""
+        edges_per_s, edge_padding_efficiency, and while the recorder is on
+        the train epoch's `spans`, observe.per_step)."""
         p = self.p
         t0 = time.time()
         history = []
@@ -307,7 +347,10 @@ class Trainer:
         try:
             for epoch in range(start_epoch, p.epochs):
                 te0 = time.time()
+                traced = observe.snapshot() if observe.RECORDER.on else None
                 train_m = self.train_epoch(train_loader)
+                spans = (None if traced is None else
+                         observe.per_step(observe.summary(traced)))
                 val_m = self.evaluate(val_loader) if val_loader else None
                 test_m = self.evaluate(test_loader) if test_loader else None
                 row = dict(epoch=epoch, lr=self.scheduler.lr,
@@ -318,7 +361,8 @@ class Trainer:
                     stream.log("epoch", **{k: v for k, v in row.items()
                                            if k != "time"},
                                seconds=row["time"],
-                               **getattr(self, "_last_throughput", {}))
+                               **getattr(self, "_last_throughput", {}),
+                               **({} if spans is None else {"spans": spans}))
                 if val_m is not None:
                     obj = val_m["objective"]
                     # the plateau scheduler steps on the minimised objective

@@ -175,13 +175,18 @@ def test_step_fingerprint_is_order_sensitive():
 
 
 def test_profile_steps_writes_trace(tmp_path):
+    def step(t):
+        with observe.span("affine"):
+            return t * 2 + 1
+
     x = torch.arange(8.0)
-    out = observe.profile_steps(lambda t: t * 2 + 1, 3, str(tmp_path / "tr"),
-                                x)
+    out = observe.profile_steps(step, 3, str(tmp_path / "tr"), x)
     assert torch.equal(out, x * 2 + 1)
     trace = tmp_path / "tr" / "trace.json"
     assert trace.is_file() and trace.stat().st_size > 0
-    json.loads(trace.read_text())
+    names = [e.get("name") for e in json.loads(trace.read_text())
+             ["traceEvents"]]
+    assert names.count("dgn.affine") == 3
 
 
 def _stream(path):
