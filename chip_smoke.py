@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (dgn_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernels]
+    python3 chip_smoke.py [--phases kernels|graphs]
 
 Run from the root of a checkout, on a machine with a CUDA GPU (written for
 the H100) and the CUDA toolkit.  `--phases kernels` runs phases 1-3 only, to
 try a kernel in seconds; it prints the kernels line with `launches` null
-and no device line.  Phases, each of which fails the script:
+and no device line.  `--phases graphs` runs phases 1-2 and then only the
+graph checks of phase 4 (GRAPH_PATHS).  Phases, each of which fails the
+script:
 
 1. card: name and power limit from nvidia-smi; no CUDA device -> exit 1;
 2. build: every CUDA kernel of the package, from the checkout's sources, one
@@ -57,7 +59,16 @@ and no device line.  Phases, each of which fails the script:
    a ReLU, on the two sides: where gradients may hop).  On the ZINC
    batch, one more such step with the softmax aggregators (`mean dir1-0.1
    dir1-neg-0.1`), decomposed (their weights go through
-   build_pair_adjacency) and per-edge.  On zinc-flat's first batch, the
+   build_pair_adjacency) and per-edge.  On ZINC and PATTERN (GRAPH_PATHS)
+   the graph check: a trainer whose steps replay CUDA graphs
+   (train/graphs.py) against one that runs every step eagerly, from the
+   same weights with the same Adam over the same block batches (ZINC: six,
+   the fourth escape-sized, the lr halved before it), each step's loss,
+   gradients and weights within benchmark/limits/zinc-block.json's limits
+   (where a second eager trainer already leaves one, within twice its
+   reading), the same launch counts, and the replays the batches imply.
+   On
+   zinc-flat's first batch, the
    flat-versus-block check: the same graphs packed both ways, one step
    from the same weights on the card, the same loss and scores.  Each
    path prints its peak device memory (torch.cuda.max_memory_allocated)
@@ -134,6 +145,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import itertools
 import json
 import math
 import re
@@ -254,6 +266,12 @@ POISON_RTOL, POISON_ATOL = 1e-5, 1e-6
 # windows in a row), and the spin-kernel launches at each edge of a window
 PROFILER_WINDOWS, SENTINELS = 5, 8
 DEVICE = "cuda"
+# the graph check: per path, the batches it steps through, the step given
+# an escape-sized batch and the step before which the lr halves (None:
+# neither), and the replays that follow (one capture on the second step
+# of the loader's signature; the escape runs eagerly)
+GRAPH_PATHS = {"zinc": (6, 3, 3, 4), "pattern": (2, None, None, 1)}
+GRAPH_LIMITS = REPO / "benchmark" / "limits" / "zinc-block.json"
 
 
 def fail(msg: str) -> None:
@@ -1258,6 +1276,130 @@ def flat_vs_block(torch, task, net, ds, params):
         fail("the flat and the block layout disagree on the card")
 
 
+def escape_batch(ds, loader):
+    """The loader's first batch_size train graphs packed at pads one 512
+    step above the loader's: another batch signature, as an escape repack
+    makes."""
+    from dgn_tpu_torch.graph import pack_graphs
+    graphs = sorted(ds.train[:loader.batch_size], key=lambda g: -g.num_nodes)
+    return pack_graphs(graphs, n_pad=loader.n_pad + 512,
+                       e_pad=loader.e_pad + 512, g_pad=loader.g_pad,
+                       mxu_layout=True, n_pairs_pad=loader.pair_pad)
+
+
+def graph_check(torch, key, task, net, ds, params, loader) -> None:
+    """A trainer whose steps replay CUDA graphs (train/graphs.py) against a
+    trainer that runs every step eagerly, from the same weights and with
+    the same Adam, over GRAPH_PATHS[key]'s batches of loader: after each
+    step the loss, every parameter's gradient and its change from the
+    start, read as benchmark/check.py reads the benchmark's steps, within
+    GRAPH_LIMITS; the same kernel launches on both; the replays the
+    batches imply.  A second eager trainer (the control) is read against
+    the first alike: the spread of the card's own atomics.  Where the
+    control leaves a limit (PATTERN's gradients do, with no graph in
+    either trainer), the graphed trainer is held at twice the control's
+    reading of that number.  Prints each step's readings and one line
+    with the worst ones and the step ms of each side."""
+    from benchmark import check
+    from dgn_tpu_torch import observe, run
+    from dgn_tpu_torch.train.trainer import Trainer
+    n, escape_at, drop_at, replays = GRAPH_PATHS[key]
+    batches = list(itertools.islice(itertools.cycle(loader), n))
+    if escape_at is not None:
+        batches[escape_at] = escape_batch(ds, loader)
+    model, loss_fn = run.build_model(task, net, ds,
+                                     torch.Generator().manual_seed(41))
+    sides = {"graphed": model, "eager": copy.deepcopy(model),
+             "control": copy.deepcopy(model)}
+    trainers = {side: Trainer(m, loss_fn, params, task=task, device=DEVICE)
+                for side, m in sides.items()}
+    for side in ("eager", "control"):
+        trainers[side].step_graphs = None
+    if trainers["graphed"].step_graphs is None:
+        fail(f"graph check {key}: the trainer holds no step graphs")
+    w0 = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+    counters = launch_counters()
+    launched = {side: dict.fromkeys(counters, 0) for side in sides}
+    losses = {side: [] for side in sides}
+    ms = {side: [] for side in sides}
+    limits = json.loads(GRAPH_LIMITS.read_text())
+    worst = {side: dict.fromkeys(check.NUMBERS, 0.0)
+             for side in ("graphed", "control")}
+    steps = []
+    observe.reset()
+    with observe.tracing():
+        for i, gb in enumerate(batches):
+            if i == drop_at:
+                for t in trainers.values():
+                    t.scheduler.lr = params.init_lr / 2
+            for side, t in trainers.items():
+                before = {k: c.launches for k, c in counters.items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, _ = t.train_step(gb)
+                torch.cuda.synchronize()
+                ms[side].append((time.perf_counter() - t0) * 1e3)
+                losses[side].append(float(loss))
+                for k, c in counters.items():
+                    launched[side][k] += c.launches - before[k]
+            grads = {side: {k: p.grad.detach().cpu() for k, p in
+                            t.model.named_parameters() if p.grad is not None}
+                     for side, t in trainers.items()}
+            change = {side: {k: p.detach().cpu() - w0[k] for k, p in
+                             t.model.named_parameters()}
+                      for side, t in trainers.items()}
+            ref = {"losses": losses["eager"], "grad": grads["eager"],
+                   "change": change["eager"], "raw_grad": grads["eager"]}
+            step = {}
+            for side in ("graphed", "control"):
+                r = check.readings({"losses": losses[side],
+                                    "grad": grads[side],
+                                    "change": change[side]}, ref)
+                step[side] = {k: r[k] for k in check.NUMBERS}
+                step[side]["grad_at"] = r["grad_at"]
+                for k in check.NUMBERS:
+                    worst[side][k] = max(worst[side][k], r[k])
+            steps.append(step)
+        counts = observe.summary()["counters"]
+    # a limit the card's own spread (the control) already leaves holds the
+    # graphed side at twice the control's reading instead
+    held = {k: limits[k] if worst["control"][k] <= limits[k]
+            else 2 * worst["control"][k] for k in check.NUMBERS}
+    ok, shown = check.judge(worst["graphed"], held)
+    print(f"graph check {key}: per step, graphed and control (a second "
+          f"eager trainer) against the eager one: {json.dumps(steps)}; "
+          f"control's worst {json.dumps(worst['control'])}")
+    got = counts.get("step.graph_replays", 0)
+    print(f"graph check {key}: {n} steps (escape-sized batch at step "
+          f"{escape_at}, lr halved before step {drop_at}; 0-based): "
+          f"replays {got} (want {replays}), captures "
+          f"{counts.get('step.graph_captures', 0)}, eager steps "
+          f"{counts.get('step.eager', 0)} of both trainers; launches "
+          f"graphed {launched['graphed']} eager {launched['eager']}; worst "
+          f"over the steps {json.dumps(shown)}; losses graphed "
+          f"{losses['graphed']} eager {losses['eager']}; step ms graphed "
+          f"{[round(x, 3) for x in ms['graphed']]} eager "
+          f"{[round(x, 3) for x in ms['eager']]}")
+    if got != replays:
+        fail(f"graph check {key}: {got} replays, not {replays}")
+    if launched["graphed"] != launched["eager"]:
+        fail(f"graph check {key}: the graphed trainer's launches "
+             f"{launched['graphed']} differ from the eager one's "
+             f"{launched['eager']}")
+    if not ok:
+        fail(f"graph check {key}: the replayed steps leave the limits: "
+             f"{shown}")
+
+
+def graphs_phase(torch) -> None:
+    """The graph check of each of GRAPH_PATHS alone (`--phases graphs`)."""
+    for key in GRAPH_PATHS:
+        ds, model, _, _, loaders, cfg = prepared(key)
+        graph_check(torch, key, cfg.task, model.cfg, ds, cfg.params,
+                    loaders["train"])
+        _PREPARED.pop(key)
+
+
 def sibling(path: TrainPath):
     """The float32 path a bf16 or fp16 path repeats (its key without the
     suffix), or None."""
@@ -1330,6 +1472,8 @@ def training_phase(torch):
             model.cfg, dropout=0.0, in_feat_dropout=0.0), ds, p, batches[0])
         if key == "zinc":
             softmax_check(torch, cfg.task, model.cfg, ds, p, batches[0])
+        if key in GRAPH_PATHS:
+            graph_check(torch, key, cfg.task, model.cfg, ds, p, train)
         if key == "zinc-flat":
             flat_vs_block(torch, cfg.task, model.cfg, ds, p)
         del ds, model, trainer, loaders, batches
@@ -2526,10 +2670,11 @@ def dense_phase(torch, np) -> None:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", choices=("all", "kernels"),
+    parser.add_argument("--phases", choices=("all", "kernels", "graphs"),
                         default="all",
                         help="kernels: phases 1-3 only; the kernels line "
-                        "then has no launches and no device line follows")
+                        "then has no launches and no device line follows; "
+                        "graphs: phases 1-2 and the graph checks")
     args = parser.parse_args()
     if not (REPO / "dgn_tpu_torch").is_dir() or not all(
             (CONFIGS / path.config).is_file() for path in PATHS):
@@ -2572,6 +2717,10 @@ def main() -> None:
                 print(f"  ptxas {kernel}: {line.strip()}")
 
     share_datasets()
+    if args.phases == "graphs":
+        graphs_phase(torch)
+        print(f"card: {card_line()}")
+        return
     t = time.time()
     kernels = adjacency_phase(torch, np) + extremes_phase(torch, np)
     print(f"kernel phase: {time.time() - t:.1f}s")

@@ -37,7 +37,9 @@ While the recorder is on, every garbage collection is a span "gc" and
 counts `gc.gen<g>`.  `summary()` reads the totals, the counters and the
 kernels' own launch counters (`build_pair_adjacency.launches`,
 `segment_extremes_fwd/bwd.launches`: their growth while the recorder was
-on), which it does not count again.
+on), which it does not count again.  They count kernel executions: a
+replayed CUDA graph adds the launches its capture recorded
+(`add_launches`).
 
 Where the spans are (names are part of the record): data/loader.py
 `loader.shuffle`, `loader.pack` (one batch, from next() to its yield) and
@@ -48,8 +50,12 @@ inside it `loader.escape` (the repack at the exact need); graph.py
 them), `step.h2d`, `step.forward`, `step.backward`, `step.grad_sync`, and
 per batch of train_epoch `epoch.readback` and `epoch.account`, then
 `epoch.finish`; models/dgn_net.py `model.edge_context`, `model.encode`,
-`model.layer_<i>`, `model.readout`.  Counters `h2d.copies` and `h2d.bytes`
-(`to_device`: one per tensor whose device changes).  train_epoch turns the
+`model.layer_<i>`, `model.readout` (on an eager step; a replayed step,
+train/graphs.py, runs no Python inside the model), and on a captured
+step `step.capture`.  Counters `h2d.copies` and `h2d.bytes`
+(`to_device` and `copy_into`: one per tensor whose device changes), and
+`step.eager`, `step.graph_captures` and `step.graph_replays` (how each
+train step ran).  train_epoch turns the
 recorder on for an epoch that runs under an active torch.profiler
 (`following_profiler`), so any profile of the training loop holds the
 program's ranges.
@@ -334,6 +340,15 @@ def to_device(t: torch.Tensor, device) -> torch.Tensor:
     return out
 
 
+def copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst.copy_(src), counted as to_device counts a copy when the two
+    live on different devices."""
+    dst.copy_(src)
+    if RECORDER.on and dst.device != src.device:
+        count("h2d.copies")
+        count("h2d.bytes", src.numel() * src.element_size())
+
+
 def _on_gc(phase: str, info: dict) -> None:
     r = RECORDER
     if phase == "start":
@@ -352,7 +367,7 @@ def enable() -> None:
         return
     r.on = True
     r._since = time.perf_counter_ns()
-    r._launch0 = _launch_counters()
+    r._launch0 = launch_counts()
     gc.callbacks.append(_on_gc)
 
 
@@ -377,7 +392,7 @@ def reset() -> None:
     r.top_ns = r.on_ns = 0
     if r.on:
         r._since = time.perf_counter_ns()
-        r._launch0 = _launch_counters()
+        r._launch0 = launch_counts()
 
 
 @contextlib.contextmanager
@@ -400,18 +415,30 @@ def following_profiler():
     return _NO_SPAN
 
 
-def _launch_counters() -> Dict[str, int]:
+def _counted_kernels() -> dict:
+    """The kernel wrappers that count their launches, by counter name."""
     from .ops import adjacency, extremes
-    return {"build_pair_adjacency.launches":
-            adjacency.build_pair_adjacency.launches,
-            "segment_extremes_fwd.launches":
-            extremes.segment_extremes_fwd.launches,
-            "segment_extremes_bwd.launches":
-            extremes.segment_extremes_bwd.launches}
+    return {"build_pair_adjacency.launches": adjacency.build_pair_adjacency,
+            "segment_extremes_fwd.launches": extremes.segment_extremes_fwd,
+            "segment_extremes_bwd.launches": extremes.segment_extremes_bwd}
+
+
+def launch_counts() -> Dict[str, int]:
+    """The kernels' launch counters now, by counter name."""
+    return {k: fn.launches for k, fn in _counted_kernels().items()}
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add counts (by counter name) to the kernels' launch counters: the
+    launches a replayed CUDA graph runs, which no Python call counts, or
+    minus those a capture recorded without running them."""
+    fns = _counted_kernels()
+    for k, n in counts.items():
+        fns[k].launches += n
 
 
 def _launches_since(base: Dict[str, int]) -> Dict[str, int]:
-    return {k: v - base.get(k, 0) for k, v in _launch_counters().items()}
+    return {k: v - base.get(k, 0) for k, v in launch_counts().items()}
 
 
 def snapshot() -> dict:

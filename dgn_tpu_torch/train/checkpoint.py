@@ -142,6 +142,10 @@ class Checkpointer:
         # and keeps the step count where Adam keeps it
         opt.load_state_dict({"state": state,
                              "param_groups": opt.state_dict()["param_groups"]})
+        # a captured train step reads the state tensors just replaced
+        forget = getattr(trainer, "forget_step_graphs", None)
+        if forget is not None:
+            forget()
         s = meta["scheduler"]
         trainer.scheduler.lr = s["lr"]
         trainer.scheduler.best = float(s["best"])

@@ -41,10 +41,18 @@ observe.py is on, the train epoch's spans and counters per step
 (`spans`).  A KeyboardInterrupt ends the epoch loop and `fit` returns what
 it has, so the caller's final evaluation still runs, as in dgn_tpu.
 
-Spans (observe.py): `step` and inside it its phases (`_adam_step`), which
-the rank trainers' steps share; per batch of train_epoch `epoch.readback`
-(the scores and the loss to the host) and `epoch.account` (the metric
-accumulator and Throughput), then `epoch.finish`.
+CUDA graphs (train/graphs.py): on a CUDA device, where its steps draw no
+random numbers, the single-device trainer captures its step on the block
+layout as three graphs (forward and loss, backward, Adam) the second time
+it meets a batch signature, and replays them for every later batch of that
+signature; its Adam is then adam_l2(graphed=True).  Every other step runs
+eagerly, as before.
+
+Spans (observe.py): `step` and inside it its phases (`_adam_step`, which
+the rank trainers' steps share; `_graph_step`); per batch of train_epoch
+`epoch.readback` (the scores and the loss to the host) and
+`epoch.account` (the metric accumulator and Throughput), then
+`epoch.finish`.
 """
 from __future__ import annotations
 
@@ -58,6 +66,7 @@ import torch
 from .. import observe
 from ..graph import GraphBatch
 from ..ops import field
+from . import graphs
 from . import metrics as M
 from .optim import ReduceLROnPlateau, adam_l2, set_learning_rate
 
@@ -135,10 +144,13 @@ def augment(gb: GraphBatch, draws: AugDraws, p: TrainParams) -> GraphBatch:
 
 
 class Trainer:
-    """Single-device training loop for the five benchmark tasks."""
+    """Single-device training loop for the five benchmark tasks.
+
+    graph_factory makes the graphs of a captured step (train/graphs.py;
+    None: CUDA graphs on a CUDA device, none elsewhere)."""
 
     def __init__(self, model: torch.nn.Module, loss_fn, params: TrainParams,
-                 task: str = "zinc", device="cuda"):
+                 task: str = "zinc", device="cuda", graph_factory=None):
         if task not in TASKS:
             raise NotImplementedError(f"task {task!r} is not ported yet")
         self.device = torch.device(device)
@@ -151,8 +163,17 @@ class Trainer:
         aug_seed = np.random.SeedSequence(params.seed).spawn(1)[0]
         self.aug_generator = torch.Generator(device=self.device).manual_seed(
             int(aug_seed.generate_state(1)[0]))
+        factory = graph_factory or graphs.default_factory(self.device)
+        cfg = getattr(self.model, "cfg", None)
+        # the graphs hold no random draws and no collective
+        graphable = (factory is not None and cfg is not None
+                     and cfg.dropout <= 0 and cfg.in_feat_dropout <= 0
+                     and not augments(params) and _own_reduce(self))
+        self.step_graphs = graphs.StepGraphs(factory) if graphable else None
+        self._families = tuple(cfg.agg_names()) if graphable else ()
         self.optimizer = adam_l2(self.model.parameters(), params.init_lr,
-                                 params.weight_decay)
+                                 params.weight_decay, graphed=graphable)
+        self._lr_set: Optional[float] = None
         self.scheduler = ReduceLROnPlateau(
             lr=params.init_lr, factor=params.lr_reduce_factor,
             patience=params.lr_schedule_patience, min_lr=params.min_lr)
@@ -200,6 +221,13 @@ class Trainer:
         if aug is not None and not augments(self.p):
             raise ValueError("augmentation draws for params that augment "
                              "nothing")
+        if aug is None and self.step_graphs is not None \
+                and not micro and _own_reduce(self):
+            sig = graphs.signature(gb, self._families)
+            route = self.step_graphs.route(sig)
+            if route != "eager":
+                return self._graph_step(gb, sig if route == "capture"
+                                        else None)
 
         def passes():
             draws = aug
@@ -237,17 +265,86 @@ class Trainer:
         before the passes, Adam's step after them) and `step.grad_sync`
         (_reduce_grads).  passes() opens `step.h2d`, `step.forward` and
         `step.backward` itself."""
+        # a captured step's .grad tensors are the ones its Adam reads
+        held = self.step_graphs is not None and self.step_graphs.held
         with observe.span("step"):
+            observe.count("step.eager")
             with observe.span("step.optimizer"):
                 self.model.train()
-                set_learning_rate(self.optimizer, self.scheduler.lr)
-                self.optimizer.zero_grad(set_to_none=True)
+                self._apply_lr()
+                self.optimizer.zero_grad(set_to_none=not held)
             out = passes()
             with observe.span("step.grad_sync"):
                 self._reduce_grads()
             with observe.span("step.optimizer"):
                 self.optimizer.step()
         return out
+
+    def _graph_step(self, gb: GraphBatch, capture_sig=None):
+        """One Adam step replayed from the step's graphs (train/graphs.py),
+        captured first for the signature capture_sig where it is given;
+        returns copies of the loss and the scores, which the next replay
+        leaves alone.  The spans `step.forward` (with the copies),
+        `step.backward` and `step.optimizer` (the lr before, then Adam)
+        each hold a replay."""
+        g = self.step_graphs
+        with observe.span("step"):
+            with observe.span("step.optimizer"):
+                self.model.train()
+                self._apply_lr()
+            if capture_sig is not None:
+                with observe.span("step.h2d"):
+                    static = gb.to(self.device)
+                with observe.span("step.capture"):
+                    self._capture(capture_sig, static)
+            else:
+                with observe.span("step.h2d"):
+                    g.load(gb)
+            with observe.span("step.forward"):
+                g.replay("forward")
+                # the backward and Adam replays leave them as they are
+                out = (g.out["loss"].detach().clone(),
+                       g.out["scores"].detach().clone())
+            with observe.span("step.backward"):
+                g.replay("backward")
+            with observe.span("step.optimizer"):
+                g.replay("optimizer")
+            observe.count("step.graph_replays")
+        return out
+
+    def _capture(self, sig, static: GraphBatch) -> None:
+        """Capture the step on the device batch static: the forward pass
+        and the loss, loss.backward() onto .grad tensors that start as
+        None, and Adam's step."""
+        out = self.step_graphs.out
+
+        def forward():
+            s = self.model(static, self.dropout_generator)
+            out["scores"], out["loss"] = s, self.loss_fn(s, static)
+
+        def backward():
+            out["loss"].backward()
+            out["loss"], out["scores"] = (out["loss"].detach(),
+                                          out["scores"].detach())
+
+        self.optimizer.zero_grad(set_to_none=True)
+        self.step_graphs.capture(sig, static, {
+            "forward": forward, "backward": backward,
+            "optimizer": self.optimizer.step})
+
+    def _apply_lr(self) -> None:
+        """The scheduler's lr into the optimizer when it changed (a graphed
+        Adam's lr is a device tensor, and each fill a device operation)."""
+        if self._lr_set != self.scheduler.lr:
+            set_learning_rate(self.optimizer, self.scheduler.lr)
+            self._lr_set = self.scheduler.lr
+
+    def forget_step_graphs(self) -> None:
+        """Drop the captured step, whose graphs read the optimizer's state
+        tensors (a checkpoint restore replaces them); the steps that follow
+        capture anew."""
+        if self.step_graphs is not None:
+            self.step_graphs = graphs.StepGraphs(self.step_graphs.factory)
 
     def _reduce_grads(self) -> None:
         """Between the backward passes and the optimizer step: nothing on
@@ -387,6 +484,13 @@ class Trainer:
             log("interrupted — falling through to final eval")
         return dict(history=history, best_epoch=best_epoch,
                     best_val=best_val, test_at_best=test_at_best)
+
+
+def _own_reduce(trainer: Trainer) -> bool:
+    """Whether trainer reduces its gradients as the single-device Trainer
+    does (nothing), with no override on its class or the instance."""
+    return getattr(trainer._reduce_grads, "__func__", None) \
+        is Trainer._reduce_grads
 
 
 class _MetricAccumulator:
