@@ -43,7 +43,7 @@ elif str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 from benchmark import cells, counts, devtrace, hostload  # noqa: E402
-from benchmark.window import Window, run_window  # noqa: E402
+from benchmark.window import Window, real_sizes, run_window  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "dgn_tpu")
 TRACE_SECONDS = 3.0
@@ -105,9 +105,9 @@ def execute(cell, seed: int, seconds: float, traced: bool, device: str,
     escapes = loader.n_escapes - escapes
     memory_peak = (torch.cuda.max_memory_allocated() if device == "cuda"
                    else 0)
-    tr, traced_blocks = None, []
+    tr, stretch = None, {}
     if traced:
-        tr, traced_blocks = traced_stretch(torch, prog, seconds)
+        tr, stretch = traced_stretch(torch, prog, seconds)
     readings = prog.readings()
     case = prog.reference_case()
     del trainer, loader
@@ -122,11 +122,17 @@ def execute(cell, seed: int, seconds: float, traced: bool, device: str,
                   escapes=escapes)
     log(describe(wstats, loader_geometry))
     log(host)
+    if tr is not None:
+        log(f"benchmark: traced stretch {tr['steps']} steps, "
+            f"{len(stretch['sizes'])} micro-batches, kernel launches "
+            f"{json.dumps(stretch['launches'], sort_keys=True)}")
     run = types.SimpleNamespace(
         cell=cell, net=prog.net, task=prog.task, meta=cell.traffic["meta"],
         compute_dtype=prog.net.get("compute_dtype") or "float32",
         setup_s=window.starts[0] - t0, window=wstats, trace=tr,
-        traced_blocks=traced_blocks,
+        traced_blocks=stretch.get("blocks", []),
+        launches=stretch.get("launches", {}),
+        traced_sizes=stretch.get("sizes", []),
         device_kind=(torch.cuda.get_device_name(0) if device == "cuda"
                      else "cpu"),
         peaks=json.loads((cells.HERE / "peaks.json").read_text()),
@@ -170,9 +176,16 @@ def describe(w: dict, geometry) -> str:
 
 def traced_stretch(torch, prog, seconds: float):
     """A profiled stretch of the same loop after the window: the trace's
-    reduction, with its step and adjacency-launch counts, and each traced
-    block-layout batch's (real edges, covered pairs)."""
-    from dgn_tpu_torch.ops import adjacency
+    reduction, with its step count and build_pair_adjacency's launches
+    ("launches"), and what a kernel's reader needs of the stretch:
+      launches  every launch counter the program's kernels keep
+                (observe.launch_counts), by kernel name: its launches in
+                the stretch, replayed ones included;
+      sizes     (real nodes, real edges, real graphs) of each traced
+                micro-batch (a batch without micro-batches is one);
+      blocks    (real edges, covered pairs) of each traced block-layout
+                micro-batch."""
+    from dgn_tpu_torch import observe
     from benchmark.program import block_stats
     trainer = prog.trainer
     tw = Window(min(TRACE_SECONDS, seconds),
@@ -185,7 +198,7 @@ def traced_stretch(torch, prog, seconds: float):
             return inner(gb, aug)
 
     trainer.train_step = step
-    launches = adjacency.build_pair_adjacency.launches
+    before = observe.launch_counts()
     raw = {}
     try:
         with devtrace.profiled(torch, raw):
@@ -193,11 +206,14 @@ def traced_stretch(torch, prog, seconds: float):
                 run_window(trainer, prog.loader, tw)
     finally:
         del trainer.train_step
+    launches = {k.removesuffix(".launches"): n - before.get(k, 0)
+                for k, n in observe.launch_counts().items()}
     tr = devtrace.reduce(raw)
     tr["steps"] = len(tw.starts)
-    tr["launches"] = adjacency.build_pair_adjacency.launches - launches
-    blocks = block_stats(tw.batches)
-    return tr, blocks
+    tr["launches"] = launches.get("build_pair_adjacency", 0)
+    return tr, {"launches": launches,
+                "sizes": [s for b in tw.batches for s in real_sizes(b)],
+                "blocks": block_stats(tw.batches)}
 
 
 def main(argv=None) -> int:

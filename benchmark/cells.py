@@ -1,9 +1,28 @@
-"""A cell of BENCHMARK.json and the files it names, found by name alone:
-benchmark/configs/<config>.json (the configuration as it is run),
-benchmark/traffic/<traffic>.json (the inputs and the run's flags),
-benchmark/limits/<cell>.json (the correctness limits) and the per-layer
-readers benchmark/metrics/<metric>.py.  Adding a cell or a metric adds
-files and entries; nothing here changes."""
+"""A cell of BENCHMARK.json and the files it names, found by name alone.
+A new configuration, of any task the program trains, brings these files
+and its entries in BENCHMARK.json, and edits none that is there:
+
+  benchmark/configs/<config>.json      the configuration as it is run
+  benchmark/traffic/<traffic>.json     the inputs ("data": the generator
+                                       and its parameters; "meta") and
+                                       the run's flags laid over the
+                                       configuration (micro_batches too)
+  benchmark/limits/<cell>.json         the correctness limits
+  benchmark/reference/tasks/<task>.py  the reference's encoder, readout
+                                       width, loss and loss denominator,
+                                       and the encoder's FLOPs, for a task
+                                       (the program's cfg.task) with no
+                                       file yet
+  benchmark/inputs/<generator>.py      make(spec, count, seed, split),
+                                       for inputs no generator makes yet
+  benchmark/metrics/<metric>.py        read(run), for each new metric
+
+A reader's run holds the window's steps (each step's real graphs, nodes
+and edges, summed over its micro-batches) and, in a traced run, the
+trace's reduction, `launches` (each kernel launch counter's growth over
+the traced stretch, by kernel name), `traced_sizes` (each traced
+micro-batch's real nodes, edges and graphs) and `traced_blocks` (each
+traced block-layout micro-batch's real edges and covered pairs)."""
 from __future__ import annotations
 
 import dataclasses

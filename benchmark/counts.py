@@ -7,7 +7,10 @@ from __future__ import annotations
 
 from typing import Dict, List, Sequence
 
+from .reference import tasks
+
 TILE = 128
+EXTREMES = ("max", "min")
 
 
 def families(aggregators: Sequence[str]) -> List[str]:
@@ -39,20 +42,27 @@ def train_flops(net: Dict, task: str, meta: Dict, nodes: int, edges: int,
       pretrans (complex): the linear map of [h_u || h_v] is
         h_u W1 + h_v W2 + b, two node products, 2 * 2 N F^2, and the
         per-edge sum of the two halves, E F;
-      aggregation: every aggregator a weighted sum over the incoming
-        edges, one multiply and one add per edge and feature, 2 E F A;
+      aggregation: every aggregator but max and min a weighted sum over
+        the incoming edges, one multiply and one add per edge and feature,
+        2 E F a sum; max and min one comparison per edge and feature,
+        E F each;
       posttrans: 2 N W F, W = F [complex] + A F S'.
-    The encoder: 2 N in F for a linear one, 0 for a table lookup.
+    The encoder: the task's (reference/tasks/<task>.py encoder_flops):
+    2 N in F for a linear one, 0 for a table lookup.
     The readout: the mean pool, N F, and the MLP, 2 G sum(d_j d_j+1)
-    over its halving widths.
+    over its halving widths, d_3 the task's output width.
     Backward: every product twice more (the gradients of its input and of
     its weight), except the encoder's, whose input needs none (once more);
-    the aggregation once more (its transpose; the weights are constants);
-    the pretrans' edge sum and the pool once more.  Elementwise work (the
-    norms, activations, scalers, the loss, Adam) is not counted: it is not
-    what the peak counts."""
+    a weighted sum once more (its transpose; the weights are constants),
+    and max and min once more (one gather of the output's gradient per
+    edge and feature, to the edge that won); the pretrans' edge sum and
+    the pool once more.  Elementwise work (the norms, activations,
+    scalers, the loss, Adam) is not counted: it is not what the peak
+    counts."""
     f = net["hidden_dim"]
-    n_agg = len(net["aggregators"].split())
+    names = net["aggregators"].split()
+    n_agg = len(names)
+    n_ext = sum(name in EXTREMES for name in names)
     n_scal = len(net["scalers"].split())
     n_scal = n_scal if n_scal > 1 else 1
     complex_ = net["type_net"] == "complex"
@@ -62,14 +72,14 @@ def train_flops(net: Dict, task: str, meta: Dict, nodes: int, edges: int,
         if complex_:
             products += 2 * 2 * nodes * f * f
             sums += edges * f
-        sums += 2 * edges * f * n_agg
+        sums += 2 * edges * f * (n_agg - n_ext) + edges * f * n_ext
         width = (f if complex_ else 0) + n_agg * f * n_scal
         products += 2 * nodes * width * f
-    n_out = 1 if task == "zinc" else meta["n_classes"]
-    dims = [f, f // 2, f // 4, n_out]
+    kind = tasks.find(task)
+    dims = [f, f // 2, f // 4, kind.n_out(meta)]
     products += sum(2 * graphs * dims[j] * dims[j + 1] for j in range(3))
     sums += nodes * f
-    encoder = 2 * nodes * meta["in_dim"] * f if task == "superpixels" else 0
+    encoder = kind.encoder_flops(meta, f, nodes)
     return 3 * products + 2 * sums + 2 * encoder
 
 

@@ -12,7 +12,7 @@ import time
 
 from . import counts
 from .inputs import make_splits
-from .window import Window, run_window
+from .window import Window, micro_batches, run_window
 
 CHECKED_STEPS = 3
 
@@ -95,28 +95,43 @@ class FirstSteps:
 def dropout_pads(batches, sizes):
     """(n_pad, rows) of each packed batch: the padded node count, and the
     row of each real node, graph after graph in the batch's graph order,
-    each graph's nodes in order."""
-    import numpy as np
-    import torch
+    each graph's nodes in order.  For a batch of micro-batches (sizes: a
+    tuple of their node-count lists) a tuple of those, one per
+    micro-batch, in micro-batch order."""
     out = []
-    for gb, want in zip(batches, sizes):
-        mask = gb.node_mask.numpy()
-        graph = gb.node_graph.numpy()
-        real = np.nonzero(mask)[0]
-        rows = real[np.argsort(graph[real], kind="stable")]
-        have = np.bincount(graph[real], minlength=len(want))[:len(want)]
-        if have.tolist() != list(want):
-            raise RuntimeError("the packed batch's graphs are not in the "
-                               "loader's documented order")
-        out.append((len(mask), torch.as_tensor(rows, dtype=torch.int64)))
+    for batch, want in zip(batches, sizes):
+        if isinstance(want, tuple):
+            parts = micro_batches(batch)
+            if len(parts) != len(want):
+                raise RuntimeError("the packed batch does not hold the "
+                                   "loader's documented micro-batches")
+            out.append(tuple(_pads(gb, w) for gb, w in zip(parts, want)))
+        else:
+            out.append(_pads(batch, want))
     return out
 
 
+def _pads(gb, want):
+    """(n_pad, rows) of one packed batch whose graphs hold want nodes."""
+    import numpy as np
+    import torch
+    mask = gb.node_mask.numpy()
+    graph = gb.node_graph.numpy()
+    real = np.nonzero(mask)[0]
+    rows = real[np.argsort(graph[real], kind="stable")]
+    have = np.bincount(graph[real], minlength=len(want))[:len(want)]
+    if have.tolist() != list(want):
+        raise RuntimeError("the packed batch's graphs are not in the "
+                           "loader's documented order")
+    return len(mask), torch.as_tensor(rows, dtype=torch.int64)
+
+
 def block_stats(batches):
-    """(real edges, covered pairs) of each block-layout batch."""
+    """(real edges, covered pairs) of each block-layout micro-batch (each
+    forward pass builds the adjacency of its own)."""
     import numpy as np
     out = []
-    for gb in batches:
+    for gb in (gb for b in batches for gb in micro_batches(b)):
         if gb.mxu is None:
             continue
         m = gb.edge_mask.numpy()
@@ -124,6 +139,16 @@ def block_stats(batches):
         d = gb.dst.numpy()[m].astype(np.int64) // counts.TILE
         out.append((int(m.sum()), len(np.unique((d << 32) | s))))
     return out
+
+
+def micro_batch_option(cell):
+    """The configuration's micro_batches: the traffic's flag, else the
+    configuration file's "data" block, else the program's default
+    "auto"."""
+    flags = cell.traffic.get("flags", {})
+    if "micro_batches" in flags:
+        return flags["micro_batches"]
+    return cell.config.get("data", {}).get("micro_batches", "auto")
 
 
 def effective(cell):
@@ -151,8 +176,10 @@ class CellRun:
         t = self._stage("inputs", t)
         from . import weights as W
         from .reference import dgn as ref_dgn
+        from .reference import tasks as ref_tasks
         self.cfg = build_config(cell, seed)
         self.task = self.cfg.task
+        ref_tasks.find(self.task)       # a task with no reference: refused
         _, self.model, _, self.trainer, loaders = prepare(
             self.cfg, to_dataset(cell, self.splits), device)
         self.loader = loaders["train"]
@@ -192,18 +219,24 @@ class CellRun:
 
     def reference_case(self) -> dict:
         """What the reference follows: the checked steps' graphs in the
-        loader's documented order, where dropout draws (n_pad, rows), the
+        loader's documented order (each step's micro-batches, where the
+        configuration has them), where dropout draws (n_pad, rows), the
         train split's mean log degree."""
         from .reference import dgn as ref_dgn
         from .reference import follow as ref_follow
         block = self.cfg.data.layout in ("auto", "mxu")
         graphs = ref_follow.first_batches(
             self.splits["train"], self.seed, self.params["batch_size"],
-            CHECKED_STEPS, block)
+            CHECKED_STEPS, block, micro_batch_option(self.cell))
+
+        def sizes(step):
+            if isinstance(step, tuple):
+                return tuple([g.num_nodes for g in p] for p in step)
+            return [g.num_nodes for g in step]
+
         pads = None
         if self.net.get("dropout", 0.0) > 0:
-            pads = dropout_pads(self.warm.batches,
-                                [[g.num_nodes for g in b] for b in graphs])
+            pads = dropout_pads(self.warm.batches, [sizes(b) for b in graphs])
         return {"batches": graphs, "pads": pads,
                 "avg_log": ref_dgn.avg_log_degree(self.splits["train"])}
 

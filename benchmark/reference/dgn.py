@@ -9,6 +9,7 @@ linear pretrans of [h_u || h_v] for the complex one) and D(v) v's
 in-degree:
 
   mean       sum_e msg_e / D(v)                         (0 when D(v) = 0)
+  max, min   max_e msg_e, min_e msg_e, per feature      (0 when D(v) = 0)
   dir{k}-av  sum_e |d_e| msg_e / (S_k(v) + 1e-8)
   dir{k}-dx  | sum_e d_e (msg_e - h_v) | / (S_k(v) + 1e-8)
 
@@ -19,13 +20,25 @@ nodes.  A layer: posttrans over [h || scaled aggregates] (complex) or the
 aggregates alone (simple), graph norm (times sqrt(1 / nodes of the
 graph)), batch norm over the batch's nodes (biased variance, eps 1e-5),
 ReLU, the residual, dropout.  Then the per-graph mean of the nodes and the
-readout MLP (Linear, ReLU, Linear, ReLU, Linear at halving widths)."""
+readout MLP (Linear, ReLU, Linear, ReLU, Linear at halving widths).
+
+max and min are the published ones (Saro00/DGN nets/aggregators.py: the
+max and the min over a node's mailbox of incoming messages), with 0 for a
+node with no incoming edge, as dgn_tpu and the port take it (segment max
+and min over the real edges); their gradient splits equally among tied
+edges, as torch's and XLA's scatter-max do and the port's kernel pair
+does.
+
+The encoder, the readout's width and the loss are the task's
+(tasks/<task>.py)."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from . import tasks
 
 EPS = 1e-8
 BN_EPS = 1e-5
@@ -91,16 +104,9 @@ def param_spec(net: Dict, task: str, meta: Dict) -> List[tuple]:
     n_agg = len(aggregator_names(net))
     n_scal = len(scaler_names(net))
     n_scal = n_scal if n_scal > 1 else 1
-    spec = []
-    if task == "zinc":
-        spec.append(("embedding_h.embedding", (meta["num_atom_type"], f)))
-        n_out = 1
-    elif task == "superpixels":
-        spec += [("embedding_h.kernel", (meta["in_dim"], f)),
-                 ("embedding_h.bias", (f,))]
-        n_out = meta["n_classes"]
-    else:
-        raise ValueError(f"task {task!r} has no reference")
+    kind = tasks.find(task)
+    spec = list(kind.encoder_spec(meta, f))
+    n_out = kind.n_out(meta)
     complex_ = net["type_net"] == "complex"
     for i in range(net["L"]):
         p = f"layer_{i}"
@@ -178,6 +184,17 @@ def _scaled(agg, batch: Batch, scalers, avg_log):
     return torch.cat(cols, dim=1)
 
 
+def _extreme(batch: Batch, msg, reduce: str):
+    """Per destination and feature the max ("amax") or min ("amin") of the
+    incoming edges' messages, 0 for a node with none.  The rows start at
+    -inf / +inf, so no start value joins a tie."""
+    start = float("-inf") if reduce == "amax" else float("inf")
+    idx = batch.dst[:, None].expand_as(msg)
+    out = msg.new_full((batch.n,) + tuple(msg.shape[1:]), start)
+    out = out.scatter_reduce(0, idx, msg, reduce, include_self=False)
+    return torch.where(batch.deg[:, None] > 0, out, torch.zeros_like(out))
+
+
 def _aggregate(names, batch: Batch, h, msg):
     """The aggregates of the per-edge messages msg, side by side."""
     outs = []
@@ -186,6 +203,11 @@ def _aggregate(names, batch: Batch, h, msg):
         if name == "mean":
             outs.append(batch.to_nodes(msg) / batch.deg.clamp_min(1.0)[:, None])
             continue
+        if name in ("max", "min"):
+            outs.append(_extreme(batch, msg, "a" + name))
+            continue
+        if not name.startswith("dir") or "-" not in name:
+            raise ValueError(f"aggregator {name!r} has no reference")
         kind = name.split("-", 1)[1]
         k = int(name.split("-")[0][3:])
         d = batch.eig[batch.src, k] - batch.eig[batch.dst, k]
@@ -205,10 +227,7 @@ def forward(w: Dict[str, torch.Tensor], net: Dict, task: str, batch: Batch,
             keep: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """[B, n_out] scores in training mode.  keep: one [n, hidden] bool
     mask per layer, the dropout's kept entries (None: no dropout)."""
-    if task == "zinc":
-        h = w["embedding_h.embedding"][batch.feat]
-    else:
-        h = prec.mm(batch.feat, w["embedding_h.kernel"]) + w["embedding_h.bias"]
+    h = tasks.find(task).encode(w, batch, prec)
     names, scalers = aggregator_names(net), scaler_names(net)
     snorm = torch.rsqrt(batch.sizes)[batch.graph][:, None]
     rate = net.get("dropout", 0.0)
@@ -249,11 +268,13 @@ def forward(w: Dict[str, torch.Tensor], net: Dict, task: str, batch: Batch,
 
 
 def loss(scores: torch.Tensor, batch: Batch, task: str) -> torch.Tensor:
-    """ZINC: mean absolute error; superpixels: mean cross-entropy."""
-    if task == "zinc":
-        return (scores[:, 0] - batch.label[:, 0]).abs().mean()
-    logp = torch.log_softmax(scores, dim=1)
-    return -logp.gather(1, batch.label[:, :1]).mean()
+    """The task's loss over the batch (tasks/<task>.py)."""
+    return tasks.find(task).loss(scores, batch)
+
+
+def loss_weight(batch: Batch, task: str) -> float:
+    """The task's denominator of one micro-batch's loss."""
+    return float(tasks.find(task).weight(batch))
 
 
 def adam_l2(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],

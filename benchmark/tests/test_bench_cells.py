@@ -2,8 +2,10 @@
 its files alone."""
 import importlib.util
 import json
+import os
 import re
 import shutil
+import subprocess
 import sys
 
 import pytest
@@ -82,3 +84,56 @@ def test_a_cell_is_added_by_files_alone(tmp_path):
     assert c.traffic["flags"]["batch_size"] == 256
     assert "adjacency_roofline" not in [m["name"] for m in c.per_layer]
     assert c.config_name == "dgn-zinc" and c.limits
+
+
+def _run_copied_toy(copy_root, name):
+    """A toy run of name from the benchmark copied under copy_root (the
+    program from this repository), in a process of its own."""
+    script = ("import sys\n"
+              f"sys.path[:0] = [{str(copy_root)!r}, "
+              f"{str(copy_root / 'benchmark' / 'tests')!r}]\n"
+              "import benchmark\n"
+              f"assert benchmark.__file__.startswith({str(copy_root)!r})\n"
+              "from bench_toy import run_toy\n"
+              f"print(run_toy({name!r})['correct'])\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    return subprocess.run([sys.executable, "-c", script], cwd=copy_root,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+
+
+def test_a_cell_of_a_new_task_is_added_by_files_alone(tmp_path):
+    """A copy of the benchmark without superpixels' generator and task
+    file refuses the cifar10-block toy, naming the missing file; with the
+    generator back, it names the task file; with both back it runs
+    correct, and no other file changed."""
+    shutil.copytree(ROOT / "benchmark", tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    bench = tmp_path / "benchmark"
+    files = ["inputs/superpixels.py", "reference/tasks/superpixels.py"]
+    for f in files:
+        (bench / f).unlink()
+    p = _run_copied_toy(tmp_path, "cifar10-block")
+    assert p.returncode != 0 and not p.stdout.strip()
+    assert "no generator 'superpixels'" in p.stderr, p.stderr[-2000:]
+    assert "benchmark/inputs/superpixels.py" in p.stderr
+    shutil.copy(ROOT / "benchmark" / files[0], bench / files[0])
+    p = _run_copied_toy(tmp_path, "cifar10-block")
+    assert p.returncode != 0 and not p.stdout.strip()
+    assert "task 'superpixels' has no reference" in p.stderr, \
+        p.stderr[-2000:]
+    assert "benchmark/reference/tasks/superpixels.py" in p.stderr
+    shutil.copy(ROOT / "benchmark" / files[1], bench / files[1])
+    p = _run_copied_toy(tmp_path, "cifar10-block")
+    assert p.returncode == 0, p.stderr[-2000:]
+    assert p.stdout.strip().splitlines()[-1] == "True"
+    copied = sorted(f.relative_to(bench) for f in bench.rglob("*")
+                    if f.is_file() and "__pycache__" not in f.parts)
+    assert copied == sorted(
+        f.relative_to(ROOT / "benchmark")
+        for f in (ROOT / "benchmark").rglob("*")
+        if f.is_file() and "__pycache__" not in f.parts)
+    for f in copied:
+        assert (bench / f).read_bytes() == \
+            (ROOT / "benchmark" / f).read_bytes(), f

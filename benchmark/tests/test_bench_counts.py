@@ -39,6 +39,60 @@ def test_train_flops_by_hand():
     assert counts.train_flops(simple, "superpixels", meta, n, e, g) == want
 
 
+def test_train_flops_counts_max_and_min_by_hand():
+    # max and min: one comparison forward, one gather backward, per edge
+    # and feature; the weighted sums as before
+    n, e, g, f = 10, 30, 2, 4
+    net = dict(TOY, type_net="simple", scalers="identity",
+               aggregators="mean max min dir1-dx")
+    mlp = 2 * g * (4 * 2 + 2 * 1 + 1 * 1)
+    want = (3 * (2 * n * (4 * f) * f + mlp)
+            + 2 * (2 * e * f * 2 + e * f * 2 + n * f))
+    assert counts.train_flops(net, "zinc", {}, n, e, g) == want
+
+
+def _train_flops_before(net, task, meta, nodes, edges, graphs):
+    """train_flops as it was before the task files and max/min: the count
+    that dgn-zinc and dgn-cifar10 must keep bit for bit."""
+    f = net["hidden_dim"]
+    n_agg = len(net["aggregators"].split())
+    n_scal = len(net["scalers"].split())
+    n_scal = n_scal if n_scal > 1 else 1
+    complex_ = net["type_net"] == "complex"
+    products = 0.0
+    sums = 0.0
+    for _ in range(net["L"]):
+        if complex_:
+            products += 2 * 2 * nodes * f * f
+            sums += edges * f
+        sums += 2 * edges * f * n_agg
+        width = (f if complex_ else 0) + n_agg * f * n_scal
+        products += 2 * nodes * width * f
+    n_out = 1 if task == "zinc" else meta["n_classes"]
+    dims = [f, f // 2, f // 4, n_out]
+    products += sum(2 * graphs * dims[j] * dims[j + 1] for j in range(3))
+    sums += nodes * f
+    encoder = 2 * nodes * meta["in_dim"] * f if task == "superpixels" else 0
+    return 3 * products + 2 * sums + 2 * encoder
+
+
+@pytest.mark.parametrize("config,task,traffic", [
+    ("dgn-zinc", "zinc", "zinc-block"),
+    ("dgn-cifar10", "superpixels", "cifar10-block")])
+def test_train_flops_keeps_its_count_bit_for_bit(config, task, traffic):
+    import json
+    from bench_toy import ROOT
+    bench = ROOT / "benchmark"
+    net = json.loads((bench / f"configs/{config}.json").read_text())[
+        "net_params"]
+    meta = json.loads((bench / f"traffic/{traffic}.json").read_text())["meta"]
+    for n, e, g in ((10, 30, 2), (2963, 6402, 128), (17, 0, 1),
+                    (31872, 66560, 1024), (123457, 987654, 4096)):
+        new = counts.train_flops(net, task, meta, n, e, g)
+        old = _train_flops_before(net, task, meta, n, e, g)
+        assert type(new) is type(old) and new.hex() == old.hex(), (n, e, g)
+
+
 def test_adjacency_bytes_by_hand():
     # 100 real edges, 3 families: 100 * (12 + 8) in, 2 covered pairs out
     assert counts.adjacency_bytes(100, 2, 3) == \

@@ -79,8 +79,9 @@ def test_half_of_the_batch_left_out_fails(monkeypatch, name, layout):
     assert not r["correct"], r["check"]
 
 
-@pytest.mark.parametrize("layout", ["", "flat"])
-@pytest.mark.parametrize("name", TOY_CELLS)
+@pytest.mark.parametrize("name,layout", [
+    (name, layout) for name in TOY_CELLS + ["zinc-block-micro"]
+    for layout in ("", "flat")])
 def test_control_fails(name, layout):
     """The reference in TF32 in the program's place, and half of each batch
     left out, each read against the float32 reference at toy size, fail
@@ -99,6 +100,52 @@ def test_control_fails(name, layout):
         ok, shown = check.judge(check.readings(run.follow(case, **kw), ref),
                                 limits)
         assert not ok, (kw, shown)
+
+
+def _drop_second_micro_batch(monkeypatch):
+    from dgn_tpu_torch.train.trainer import Trainer
+    inner = Trainer.train_step
+
+    def first_only(self, gb, aug=None):
+        return inner(self, gb[:1] if isinstance(gb, list) else gb, aug)
+
+    monkeypatch.setattr(Trainer, "train_step", first_only)
+
+
+def _equal_micro_batch_weights(monkeypatch):
+    from dgn_tpu_torch.train.trainer import Trainer
+    monkeypatch.setattr(Trainer, "_loss_weight", lambda self, gb: 1.0)
+
+
+@pytest.mark.parametrize("fault", ["equal_weights", "second_dropped"])
+def test_a_micro_batch_fault_in_the_program_fails(monkeypatch, fault):
+    """zinc-block-micro's micro-batches hold 8 and 7 graphs: each loss
+    scaled by 1/2 instead of w_k / sum(w), or the second micro-batch left
+    out of the step, fails the check."""
+    {"equal_weights": _equal_micro_batch_weights,
+     "second_dropped": _drop_second_micro_batch}[fault](monkeypatch)
+    r = run_toy("zinc-block-micro", seconds=0.3)
+    assert not r["correct"], r["check"]
+
+
+def test_batch_norm_over_the_whole_batch_fails():
+    """The reference in the program's place with batch norm over the whole
+    batch's nodes, not each micro-batch's, fails zinc-block-micro's
+    limits."""
+    from benchmark import check
+    from benchmark.program import CellRun
+    torch.set_num_threads(2)
+    cell = toy_cell("zinc-block-micro")
+    run = CellRun(cell, SEED, "cpu", log=lambda m: None)
+    run.warm_up()
+    case = run.reference_case()
+    run.free()
+    assert all(isinstance(step, tuple) and len(step) == 2
+               and [len(p) for p in step] == [8, 7] for step in case["batches"])
+    ref = run.follow(case)
+    ok, shown = check.judge(check.readings(
+        run.follow(case, whole_batch_norm=True), ref), cell.limits)
+    assert not ok, shown
 
 
 @pytest.fixture

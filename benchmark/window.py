@@ -16,6 +16,19 @@ from typing import Callable, List, Optional
 import numpy as np
 
 
+def micro_batches(batch) -> list:
+    """The packed micro-batches of one loader batch: a list of K of them,
+    or the one packed batch."""
+    return list(batch) if isinstance(batch, (list, tuple)) else [batch]
+
+
+def real_sizes(batch) -> list:
+    """(real nodes, real edges, real graphs) of each micro-batch of one
+    loader batch."""
+    return [(int(gb.node_mask.sum()), int(gb.edge_mask.sum()),
+             int(gb.graph_mask.sum())) for gb in micro_batches(batch)]
+
+
 class Window:
     """Host clock over the requests of one window (seconds long; None: no
     close, the warm-up epoch)."""
@@ -49,7 +62,9 @@ class Window:
 
 
 class Feed:
-    """train_epoch's loader: forwards the loader's n_escapes counter."""
+    """train_epoch's loader: forwards the loader's n_escapes counter.  A
+    batch of K micro-batches (a list of packed batches) counts the real
+    graphs, nodes and edges of all of them."""
 
     def __init__(self, loader, window: Window):
         self.loader = loader
@@ -74,9 +89,10 @@ class Feed:
                 return
             w.pack_s.append(time.perf_counter() - t)
             w.starts.append(t)
-            w.graphs.append(int(gb.graph_mask.sum()))
-            w.nodes.append(int(gb.node_mask.sum()))
-            w.edges.append(int(gb.edge_mask.sum()))
+            nodes, edges, graphs = (sum(x) for x in zip(*real_sizes(gb)))
+            w.graphs.append(graphs)
+            w.nodes.append(nodes)
+            w.edges.append(edges)
             if len(w.batches) < w.keep_batches:
                 w.batches.append(gb)
             yield gb
