@@ -55,7 +55,9 @@ train/graphs.py, runs no Python inside the model), and on a captured
 step `step.capture`.  Counters `h2d.copies` and `h2d.bytes`
 (`to_device` and `copy_into`: one per tensor whose device changes), and
 `step.eager`, `step.graph_captures` and `step.graph_replays` (how each
-train step ran).  train_epoch turns the
+train step ran), `epoch.readback_deferred` and `epoch.readback_ready`
+(train_epoch's steps read back after the next batch's pack, and those of
+them already on the host by then).  train_epoch turns the
 recorder on for an epoch that runs under an active torch.profiler
 (`following_profiler`), so any profile of the training loop holds the
 program's ranges.

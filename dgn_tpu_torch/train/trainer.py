@@ -52,13 +52,20 @@ Spans (observe.py): `step` and inside it its phases (`_adam_step`, which
 the rank trainers' steps share; `_graph_step`); per batch of train_epoch
 `epoch.readback` (the scores and the loss to the host) and
 `epoch.account` (the metric accumulator and Throughput), then
-`epoch.finish`.
+`epoch.finish`.  train_epoch reads step n back after it has asked the
+loader for batch n+1 (`_train_epoch`), so one iteration holds batch n's
+pack, step n-1's `epoch.readback` and `epoch.account`, and step n; the
+epoch's last step is read back after the loop, in the iteration of
+`epoch.finish`.  Counters `epoch.readback_deferred` (steps read back after
+the next batch's pack) and `epoch.readback_ready` (those of them whose
+copies to the host had finished when the host came to read them).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -383,22 +390,24 @@ class Trainer:
             return self._train_epoch(loader)
 
     def _train_epoch(self, loader) -> Dict[str, float]:
+        """One step of software pipelining: step n's loss and scores start
+        for the host as soon as the step is issued (_read_back), the loader
+        packs batch n+1 while the card runs step n, and only then is step n
+        read back and accounted (_account); the last step is read back once
+        the loader is exhausted.  The same work on the same values as
+        reading each step back at once, in another order."""
         acc = _MetricAccumulator(self.task)
         tp = observe.Throughput()
         escapes0 = getattr(loader, "n_escapes", 0)
+        pending = None
         for gb in loader:
+            if pending is not None:
+                self._account(pending, acc, tp, deferred=True)
             loss, scores = self.train_step(gb)
-            many = isinstance(gb, (list, tuple))
-            micros, scores = (gb, scores) if many else ([gb], [scores])
-            with observe.span("epoch.readback"):
-                host = [s.cpu().numpy() for s in scores]
-                value = float(loss)
-            with observe.span("epoch.account"):
-                # one loss per super-batch, recorded with its first micro
-                for k, (g, s) in enumerate(zip(micros, host)):
-                    acc.add(g, s, value if k == 0 else None)
-                    tp.add_batch(g)
+            pending = self._read_back(gb, loss, scores)
             observe.next_step()
+        if pending is not None:
+            self._account(pending, acc, tp, deferred=False)
         with observe.span("epoch.finish"):
             r = tp.result()
             self._last_throughput = {
@@ -411,6 +420,49 @@ class Trainer:
             if escapes:
                 self._last_throughput["pack_escapes"] = escapes
             return acc.result()
+
+    def _read_back(self, gb: Batch, loss, scores) -> "_Pending":
+        """A step's batch (its micro-batches) with its loss and scores on
+        their way to the host.  On a CUDA device: copied without blocking
+        into pinned host tensors (torch's caching host allocator), behind
+        the step's work on the current stream, with an event recorded after
+        the copies.  Elsewhere the tensors themselves, read as before."""
+        if isinstance(gb, (list, tuple)):
+            micros, scores = list(gb), list(scores)
+        else:
+            micros, scores = [gb], [scores]
+        if self.device.type != "cuda":
+            return _Pending(micros, loss, scores, None)
+        host = []
+        for t in [loss] + scores:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            host.append(h)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return _Pending(micros, host[0], host[1:], done)
+
+    def _account(self, p: "_Pending", acc: "_MetricAccumulator",
+                 tp: observe.Throughput, deferred: bool) -> None:
+        """Wait for a step's host values (`epoch.readback`), then add them
+        to the epoch's metric and its batches to Throughput
+        (`epoch.account`).  deferred: read back after the next batch's
+        pack, counted in `epoch.readback_deferred`, and in
+        `epoch.readback_ready` when its copies had finished by now."""
+        if deferred:
+            observe.count("epoch.readback_deferred")
+            if p.done is None or p.done.query():
+                observe.count("epoch.readback_ready")
+        with observe.span("epoch.readback"):
+            if p.done is not None:
+                p.done.synchronize()
+            host = [s.cpu().numpy() for s in p.scores]
+            value = float(p.loss)
+        with observe.span("epoch.account"):
+            # one loss per super-batch, recorded with its first micro
+            for k, (g, s) in enumerate(zip(p.micros, host)):
+                acc.add(g, s, value if k == 0 else None)
+                tp.add_batch(g)
 
     def evaluate(self, loader) -> Dict[str, float]:
         """Each micro-batch of a list is evaluated as a batch of its own."""
@@ -484,6 +536,14 @@ class Trainer:
             log("interrupted — falling through to final eval")
         return dict(history=history, best_epoch=best_epoch,
                     best_val=best_val, test_at_best=test_at_best)
+
+
+class _Pending(NamedTuple):
+    """A train step on its way to the host (Trainer._read_back)."""
+    micros: List[GraphBatch]        # the loader's CPU batches
+    loss: torch.Tensor
+    scores: List[torch.Tensor]      # one per micro-batch
+    done: Optional[torch.cuda.Event]    # after the copies (CUDA only)
 
 
 def _own_reduce(trainer: Trainer) -> bool:

@@ -216,13 +216,19 @@ def test_train_epoch_opens_each_phase_once_a_step():
             assert parents[r[4]] == "step.forward"
         if r[1] in ("loader.pack", "step", "epoch.readback"):
             assert r[4] is None
-    # one iteration's pack, step and readback share a step index
+    # one iteration's pack, the previous step's readback and its own step
+    # share a step index; the last step is read back with epoch.finish
     by_step = {}
     for r in observe.RECORDER.records:
         by_step.setdefault(r[5], set()).add(r[1])
-    full = [v for v in by_step.values() if "step" in v]
+    full = [by_step[k] for k in sorted(by_step) if "step" in by_step[k]]
     assert len(full) == steps
-    assert all({"loader.pack", "step", "epoch.readback"} <= v for v in full)
+    assert all({"loader.pack", "step"} <= v for v in full)
+    assert "epoch.readback" not in full[0]
+    assert all("epoch.readback" in v for v in full[1:])
+    (last,) = [v for v in by_step.values() if "epoch.finish" in v]
+    assert {"epoch.readback", "epoch.account"} <= last
+    assert "step" not in last
 
 
 def test_an_escape_repack_is_its_own_span():
