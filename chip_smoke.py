@@ -2252,7 +2252,7 @@ def ep_reference(torch, ds, net, cfg, mesh, path) -> dict:
         model, loss_fn = run.build_model(cfg.task, net0, ds,
                                          torch.Generator().manual_seed(41))
         trainer = EdgeParallelTrainer(model, loss_fn, cfg.params, mesh,
-                                      task=cfg.task, node_level=node)
+                                      task=cfg.task)
         # the gradients stay on the parameters after Adam's step
         loss, scores = trainer.train_step(gb)
         return model, loss, scores

@@ -65,7 +65,7 @@ class ExperimentConfig:
             return "pcba"
         if d == "COLLAB":
             return "collab"
-        raise NotImplementedError(f"dataset {self.dataset!r} is not ported yet")
+        raise ValueError(f"unknown dataset {self.dataset!r}")
 
 
 # reference net_params keys with no field here (layer_type: dgl vs dense)

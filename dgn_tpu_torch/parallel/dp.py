@@ -37,7 +37,7 @@ from ..graph import (GraphBatch, GraphData, bucket_sizes_for,
                      mxu_bucket_sizes, mxu_pair_pad, mxu_pairs_needed,
                      pack_graphs, pack_requirements, round_up)
 from ..nn import bind_mesh
-from ..train.trainer import Trainer, TrainParams, _MetricAccumulator
+from ..train.trainer import Trainer, TrainParams
 from .mesh import Mesh
 
 _TILE = 128
@@ -194,7 +194,11 @@ class RankTrainer(Trainer):
     """What the trainers of one rank of a mesh share: the model's batch
     norms bound to the mesh, the gradient sum over the ranks, the max_time
     stop decided by rank 0, and logging, metric records and checkpoints
-    on rank 0 only."""
+    on rank 0 only.  Trainer's epoch loops run as they are, but for how a
+    step's values reach the host (_host_values); a rank reports no edges/s
+    or edge padding efficiency, as its shard's rate is not the run's."""
+
+    reports_rate = False
 
     def __init__(self, model: torch.nn.Module, loss_fn, params: TrainParams,
                  mesh: Mesh, task: str = "zinc"):
@@ -291,9 +295,7 @@ class DataParallelTrainer(RankTrainer):
         """(batch-like view, scores) of the whole super-batch: every rank's
         masks, labels and scores, concatenated in rank order (dgn_tpu's
         _flatten_stacked), as CPU tensors and a numpy array."""
-        node = self.task == "sbm"
-        fields = (("node_mask", "node_labels") if node
-                  else ("graph_mask", "labels"))
+        fields = self.spec.fields
         # gloo gathers CPU tensors only
         where = (torch.device("cpu") if self.mesh.size == 1
                  or dist.get_backend(self.mesh.group) == "gloo"
@@ -318,27 +320,7 @@ class DataParallelTrainer(RankTrainer):
         view = types.SimpleNamespace(**dict(zip(fields, cat[1:])))
         return view, cat[0].numpy()
 
-    def _train_epoch(self, loader):
-        acc = _MetricAccumulator(self.task)
-        escapes0 = getattr(loader, "n_escapes", 0)
-        for gb in loader:
-            loss, scores = self.train_step(gb)
-            with observe.span("epoch.readback"):
-                view, s = self.gather_shards(gb, scores)
-                value = float(loss)
-            with observe.span("epoch.account"):
-                acc.add(view, s, value)
-            observe.next_step()
-        self._last_throughput = {}
-        escapes = getattr(loader, "n_escapes", 0) - escapes0
-        if escapes:
-            self._last_throughput["pack_escapes"] = escapes
-        return acc.result()
-
-    def evaluate(self, loader):
-        acc = _MetricAccumulator(self.task)
-        for gb in loader:
-            scores, loss = self.eval_step(gb)
-            view, s = self.gather_shards(gb, scores)
-            acc.add(view, s, float(loss))
-        return acc.result()
+    def _host_values(self, micros, loss, scores):
+        """Every rank's shard of the step (gather_shards), and the loss."""
+        view, s = self.gather_shards(micros[0], scores[0])
+        return [view], [s], float(loss)

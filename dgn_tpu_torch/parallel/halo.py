@@ -39,7 +39,7 @@ from .. import observe
 from ..graph import (GraphBatch, GraphData, HaloSpec, _mxu_edge_arrange,
                      _tensors)
 from ..ops.mxu import TILE, build_mxu_layout_ep
-from ..train.trainer import TrainParams, _MetricAccumulator, augments
+from ..train.trainer import TrainParams, augments
 from .dp import RankTrainer
 from .mesh import Mesh
 
@@ -365,11 +365,13 @@ class EdgeParallelTrainer(RankTrainer):
     norms are bound to the mesh here, and its halo exchanges, pools and
     max run over the mesh's group, which the trainer sets on each batch's
     HaloSpec.  Graph-level tasks: every rank holds the replicated scores.
-    node_level (SBM): the per-node scores of every rank's [own | halo] rows
-    are gathered in rank order, with the node masks and labels, before
-    the loss, as dgn_tpu's out_specs=P('ep') stacks them; the metrics read
-    that view, and the graph-level ones the rank's own batch (every rank
-    has the same graph arrays).  train_step backpropagates L / P on each
+    Node-level tasks (SBM; train/tasks.py): the per-node scores of every
+    rank's [own | halo] rows are gathered in rank order, with the node
+    masks and labels, before the loss, as dgn_tpu's out_specs=P('ep')
+    stacks them (dgn_tpu's node_level); each step leaves that view, or the
+    rank's own batch for graph-level tasks (every rank has the same graph
+    arrays), where _host_values hands it to the metric, so reading a step
+    back issues no collective.  train_step backpropagates L / P on each
     rank and sums the parameter gradients over the ranks (module
     docstring), so they are the one-process gradients of L.  Dropout
     draws from the same seed on every rank, as dgn_tpu hands every shard
@@ -379,14 +381,14 @@ class EdgeParallelTrainer(RankTrainer):
     no counterpart)."""
 
     def __init__(self, model: torch.nn.Module, loss_fn, params: TrainParams,
-                 mesh: Mesh, task: str = "zinc", node_level: bool = False):
+                 mesh: Mesh, task: str = "zinc"):
         if augments(params):
             raise NotImplementedError(
                 "edge-partitioned training applies no augmentation (as "
                 "dgn_tpu's EdgeParallelTrainer): set flip, augmentation "
                 "and distortion off")
         super().__init__(model, loss_fn, params, mesh, task=task)
-        self.node_level = node_level
+        self._view = None    # the last step's loss view (loss_view)
 
     def on_device(self, gb: GraphBatch) -> GraphBatch:
         """gb on the trainer's device, its HaloSpec bound to the mesh's
@@ -402,7 +404,7 @@ class EdgeParallelTrainer(RankTrainer):
         """(scores, batch view) the loss and the metrics read, for a batch
         on the device: the rank's own for graph-level tasks; node-level,
         every rank's rows, masks and labels concatenated in rank order."""
-        if not self.node_level:
+        if not self.spec.node_level:
             return scores, gb
         from ..graph import _AllGather, _gather_all
         group = self.mesh.group
@@ -412,29 +414,10 @@ class EdgeParallelTrainer(RankTrainer):
         return _AllGather.apply(scores.contiguous(), group), view
 
     def _forward(self, g: GraphBatch, generator=None):
-        """(scores, view, loss) of this rank's shard of a batch, on the
-        device (on_device)."""
-        scores, view = self.loss_view(g, self.model(g, generator))
-        return scores, view, self.loss_fn(scores, view)
-
-    def _train(self, gb: GraphBatch):
-        """One Adam step; (loss, scores, view)."""
-        def passes():
-            with observe.span("step.h2d"):
-                g = self.on_device(gb)
-            with observe.span("step.forward"):
-                scores, view, loss = self._forward(g, self.dropout_generator)
-            with observe.span("step.backward"):
-                (loss / self.mesh.size).backward()
-            return loss.detach(), scores.detach(), view
-
-        return self._adam_step(passes)
-
-    @torch.no_grad()
-    def _eval(self, gb: GraphBatch):
-        self.model.eval()
-        scores, view, loss = self._forward(self.on_device(gb))
-        return loss, scores, view
+        """(scores, loss) of this rank's shard of a batch, on the device
+        (on_device); the loss view stays in _view."""
+        scores, self._view = self.loss_view(g, self.model(g, generator))
+        return scores, self.loss_fn(scores, self._view)
 
     def train_step(self, gb: GraphBatch, aug=None):
         """One Adam step on this rank's shard of a batch; returns the loss
@@ -442,26 +425,23 @@ class EdgeParallelTrainer(RankTrainer):
         if isinstance(gb, (list, tuple)) or aug is not None:
             raise ValueError("an edge-parallel step takes one partitioned "
                              "batch and no augmentation draws")
-        return self._train(gb)[:2]
 
+        def passes():
+            with observe.span("step.h2d"):
+                g = self.on_device(gb)
+            with observe.span("step.forward"):
+                scores, loss = self._forward(g, self.dropout_generator)
+            with observe.span("step.backward"):
+                (loss / self.mesh.size).backward()
+            return loss.detach(), scores.detach()
+
+        return self._adam_step(passes)
+
+    @torch.no_grad()
     def eval_step(self, gb: GraphBatch):
-        loss, scores, _ = self._eval(gb)
-        return scores, loss
+        self.model.eval()
+        return self._forward(self.on_device(gb))
 
-    def _epoch(self, loader, step):
-        acc = _MetricAccumulator(self.task)
-        for gb in loader:
-            loss, scores, view = step(gb)
-            with observe.span("epoch.readback"):
-                host, value = scores.cpu().numpy(), float(loss)
-            with observe.span("epoch.account"):
-                acc.add(view, host, value)
-            observe.next_step()
-        return acc.result()
-
-    def _train_epoch(self, loader):
-        self._last_throughput = {}
-        return self._epoch(loader, self._train)
-
-    def evaluate(self, loader):
-        return self._epoch(loader, self._eval)
+    def _host_values(self, micros, loss, scores):
+        """The step's loss view (left by _forward) and its scores."""
+        return [self._view], [scores[0].cpu().numpy()], float(loss)

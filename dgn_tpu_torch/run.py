@@ -123,20 +123,17 @@ def pos_enc_width(np_cfg, graph) -> Optional[int]:
 
 
 def build_model(task: str, np_cfg, ds, generator: torch.Generator):
-    """(model, loss) from the task's factory for the dataset ds; SBM and
-    superpixels take their class count, and superpixels its float node and
-    edge feature widths, from its meta, and the positional encoding its
-    width from its first train graph."""
+    """(model, loss) from the task's factory for the dataset ds, with the
+    arguments the task takes from its meta (train/tasks.py: SBM's and
+    superpixels' class counts, superpixels' float node and edge feature
+    widths), and the positional encoding its width from its first train
+    graph."""
     from .models import MODEL_FACTORIES
-    factory = MODEL_FACTORIES[task]
-    meta = ds.meta
+    from .train import tasks
+    args, kwargs = tasks.get(task).model_args(ds.meta)
     pe = pos_enc_width(np_cfg, ds.train[0])
-    if task == "sbm":
-        return factory(np_cfg, meta["n_classes"], generator, pos_enc_in=pe)
-    if task == "superpixels":
-        return factory(np_cfg, meta["n_classes"], meta["in_dim"], generator,
-                       pos_enc_in=pe, edge_in=meta["edge_dim"])
-    return factory(np_cfg, generator, pos_enc_in=pe)
+    return MODEL_FACTORIES[task](np_cfg, *args, generator, pos_enc_in=pe,
+                                 **kwargs)
 
 
 def prepare(cfg, device="cuda", mesh=None, partition: str = "dp"):
@@ -152,6 +149,7 @@ def prepare(cfg, device="cuda", mesh=None, partition: str = "dp"):
     from .data.datasets import load_dataset
     from .data.loader import BatchLoader, BucketedLoader
     from .ops.scalers import degree_stats
+    from .train import tasks
     from .train.trainer import Trainer
 
     check_ported(cfg)
@@ -161,17 +159,8 @@ def prepare(cfg, device="cuda", mesh=None, partition: str = "dp"):
                            for g in ds.train])
     # derived config from data (reference main_*.py:285-304)
     np_cfg = dataclasses.replace(cfg.net_params, avg_d=degree_stats(degs))
-    if task == "sbm":
-        np_cfg = dataclasses.replace(
-            np_cfg, num_node_types=ds.meta["num_node_types"])
-    if task == "zinc":
-        np_cfg = dataclasses.replace(
-            np_cfg, num_node_types=ds.meta["num_atom_type"],
-            num_edge_types=ds.meta["num_bond_type"],
-            edge_dim=np_cfg.edge_dim or np_cfg.hidden_dim)
-    if task == "superpixels":
-        np_cfg = dataclasses.replace(
-            np_cfg, edge_dim=np_cfg.edge_dim or np_cfg.hidden_dim)
+    np_cfg = dataclasses.replace(
+        np_cfg, **tasks.get(task).derive(np_cfg, ds.meta))
     if cfg.data.pos_enc_dim > 0:
         np_cfg = dataclasses.replace(np_cfg,
                                      pos_enc_dim=cfg.data.pos_enc_dim)
@@ -230,13 +219,13 @@ def _prepare_ep(cfg, task, np_cfg, ds, generator, mesh, layout):
     """prepare's edge-parallel branch (dgn_tpu/run.py:113-126): the model
     at bn_axis "ep", a PartitionedLoader per split (batches of batch_size
     graphs, graph axis padded to batch_size, this rank's shard of each)
-    and an EdgeParallelTrainer, node-level for SBM.  As in dgn_tpu,
+    and an EdgeParallelTrainer.  As in dgn_tpu,
     micro-batches and --n_buckets do not apply."""
     from .parallel import EdgeParallelTrainer, PartitionedLoader
     np_cfg = dataclasses.replace(np_cfg, bn_axis="ep")
     model, loss_fn = build_model(task, np_cfg, ds, generator)
     trainer = EdgeParallelTrainer(model, loss_fn, cfg.params, mesh,
-                                  task=task, node_level=task == "sbm")
+                                  task=task)
     bs = cfg.params.batch_size
     loaders = {split: PartitionedLoader(gs, batch_size=bs,
                                         n_shards=mesh.size, rank=mesh.rank,
@@ -301,10 +290,6 @@ def run_collab(cfg, device):
               "total_time_h": (time.time() - t0) / 3600.0}
     print("[dgn_tpu_torch] FINAL " + json.dumps(report, default=float))
     return report
-
-
-METRICS = {"zinc": "mae", "sbm": "acc", "superpixels": "acc",
-           "hiv": "rocauc", "pcba": "ap"}
 
 
 def _precision() -> None:
@@ -438,9 +423,10 @@ def run_seeds(cfg, args, seeds, device, mesh=None):
         say(f"[dgn_tpu_torch] ==== seed {s} ====")
         reports.append(run_one(c, a, device, mesh))
     done = [r["test_at_best_val"] for r in reports if r["test_at_best_val"]]
+    from .train.tasks import TASKS
     keys = set().union(*map(set, done)) if done else set()
     agg = {}
-    for k in ("mae", "acc", "rocauc", "ap"):
+    for k in dict.fromkeys(t.metric for t in TASKS.values()):
         if k not in keys:
             continue
         vals = [t[k] for t in done if k in t]
@@ -469,6 +455,7 @@ def run_one(cfg, args, device, mesh=None):
     trainer saves only there); every rank restores."""
     from . import observe
     from .observe import MetricStream
+    from .train import tasks
     from .train.checkpoint import Checkpointer
 
     say = _say(mesh)
@@ -499,7 +486,7 @@ def run_one(cfg, args, device, mesh=None):
             stream.close()
     final = {split: trainer.evaluate(loaders[split])
              for split in ("train", "val", "test")}
-    metric = METRICS[cfg.task]
+    metric = tasks.get(cfg.task).metric
     say(f"[dgn_tpu_torch] final {metric}: " + ", ".join(
         f"{split} {final[split][metric]:.4f}" for split in final))
     report = {

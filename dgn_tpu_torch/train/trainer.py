@@ -10,12 +10,9 @@ each step moves its batch over.  Eval batches that a loader replays
 attached, so their adjacency blocks (block layout) or their directional
 normalizers (flat layout) are built once (with_edge_context).
 
-Tasks: ZINC (MAE), SBM (balanced node accuracy), superpixels (accuracy) —
-each with the validation loss as the plateau objective — and ogbg-molhiv
-(ROC-AUC) and ogbg-molpcba (mean per-task AP), whose objective is maximised
-so the scheduler steps on -objective (reference main_HIV.py:144).  Dropout
-draws from one torch.Generator on the trainer's device, seeded from
-params.seed.
+Each task's epoch metric, plateau objective and loss weight come from the
+table of train/tasks.py.  Dropout draws from one torch.Generator on the
+trainer's device, seeded from params.seed.
 
 Augmentation (params flip / augmentation / distortion, dgn_tpu
 trainer.py:58-68): each train step rotates, then flips, then distorts the
@@ -73,8 +70,7 @@ import torch
 from .. import observe
 from ..graph import GraphBatch
 from ..ops import field
-from . import graphs
-from . import metrics as M
+from . import graphs, tasks
 from .optim import ReduceLROnPlateau, adam_l2, set_learning_rate
 
 
@@ -95,8 +91,6 @@ class TrainParams:
     augmentation: float = 0.0
     distortion: float = 0.0
 
-
-TASKS = ("zinc", "sbm", "superpixels", "hiv", "pcba")
 
 Batch = Union[GraphBatch, List[GraphBatch]]
 
@@ -151,15 +145,18 @@ def augment(gb: GraphBatch, draws: AugDraws, p: TrainParams) -> GraphBatch:
 
 
 class Trainer:
-    """Single-device training loop for the five benchmark tasks.
+    """The training loop of the five graph tasks, on one device; the rank
+    trainers (parallel/) run it with their own steps and _host_values.
 
     graph_factory makes the graphs of a captured step (train/graphs.py;
     None: CUDA graphs on a CUDA device, none elsewhere)."""
 
+    # whether train_epoch reports edges/s and the edge padding efficiency
+    reports_rate = True
+
     def __init__(self, model: torch.nn.Module, loss_fn, params: TrainParams,
                  task: str = "zinc", device="cuda", graph_factory=None):
-        if task not in TASKS:
-            raise NotImplementedError(f"task {task!r} is not ported yet")
+        self.spec = tasks.get(task)
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
@@ -192,12 +189,7 @@ class Trainer:
         """The denominator of this task's batch-mean loss: weighting the
         micro-batch losses by it makes their weighted mean EXACTLY the
         full-batch loss (train/losses.py normalisations)."""
-        if self.task == "pcba":      # mean over labeled (graph, task) entries
-            lab = gb.labels
-            return ((lab == lab) & gb.graph_mask[:, None]).sum()
-        if self.task == "sbm":       # node-level loss
-            return gb.node_mask.sum()
-        return gb.graph_mask.sum()
+        return self.spec.loss_weight(gb)
 
     def train_step(self, gb: Batch, aug: Optional[AugDraws] = None):
         """One Adam step at the scheduler's lr on one batch, or on a list of
@@ -395,7 +387,10 @@ class Trainer:
         packs batch n+1 while the card runs step n, and only then is step n
         read back and accounted (_account); the last step is read back once
         the loader is exhausted.  The same work on the same values as
-        reading each step back at once, in another order."""
+        reading each step back at once, in another order.  Every trainer
+        runs this loop; a rank trainer's reading back (_host_values) issues
+        its collectives after the next pack, which issues none, so each
+        rank still issues step n's, then its readback's, then step n+1's."""
         acc = _MetricAccumulator(self.task)
         tp = observe.Throughput()
         escapes0 = getattr(loader, "n_escapes", 0)
@@ -414,7 +409,7 @@ class Trainer:
                 "edges_per_s": round(r["edges_per_s"], 1),
                 "edge_padding_efficiency": round(
                     r["edge_padding_efficiency"], 4),
-            }
+            } if self.reports_rate else {}
             # repacks of THIS epoch, not the loader's lifetime count
             escapes = getattr(loader, "n_escapes", 0) - escapes0
             if escapes:
@@ -456,13 +451,22 @@ class Trainer:
         with observe.span("epoch.readback"):
             if p.done is not None:
                 p.done.synchronize()
-            host = [s.cpu().numpy() for s in p.scores]
-            value = float(p.loss)
+            views, host, value = self._host_values(p.micros, p.loss,
+                                                   p.scores)
         with observe.span("epoch.account"):
             # one loss per super-batch, recorded with its first micro
-            for k, (g, s) in enumerate(zip(p.micros, host)):
-                acc.add(g, s, value if k == 0 else None)
+            for k, (v, s, g) in enumerate(zip(views, host, p.micros)):
+                acc.add(v, s, value if k == 0 else None)
                 tp.add_batch(g)
+
+    def _host_values(self, micros: List[GraphBatch], loss: torch.Tensor,
+                     scores: List[torch.Tensor]):
+        """How a step's loss and scores (one per micro-batch) become host
+        values for the metric: (what the metric reads of each micro-batch,
+        its scores as a numpy array, the loss as a float).  The rank
+        trainers override it: the data-parallel one gathers every rank's
+        shard, the edge-parallel one reads its step's loss view."""
+        return micros, [s.cpu().numpy() for s in scores], float(loss)
 
     def evaluate(self, loader) -> Dict[str, float]:
         """Each micro-batch of a list is evaluated as a batch of its own."""
@@ -474,7 +478,9 @@ class Trainer:
             for g in (gb if isinstance(gb, (list, tuple)) else [gb]):
                 scores, loss = self.eval_step(
                     self.with_edge_context(g) if reuse else g)
-                acc.add(g, scores.cpu().numpy(), float(loss))
+                (view,), (host,), value = self._host_values([g], loss,
+                                                            [scores])
+                acc.add(view, host, value)
         return acc.result()
 
     def fit(self, train_loader, val_loader=None, test_loader=None,
@@ -492,7 +498,7 @@ class Trainer:
         best_val = None
         best_epoch = -1
         test_at_best = None
-        maximize = self.task in ("hiv", "pcba")
+        maximize = self.spec.maximize
         try:
             for epoch in range(start_epoch, p.epochs):
                 te0 = time.time()
@@ -554,22 +560,16 @@ def _own_reduce(trainer: Trainer) -> bool:
 
 
 class _MetricAccumulator:
-    """Task epoch metric, padding-stripped, reference semantics: ZINC the
-    mean of per-batch MAEs, SBM the mean of per-batch balanced node
-    accuracies, superpixels correct / count over the epoch, each with the
-    mean batch loss as the objective; HIV ROC-AUC and PCBA mean per-task AP
-    over the epoch's concatenated scores and labels, each its own
-    objective."""
+    """A task's epoch metric and objective (train/tasks.py Task),
+    padding-stripped, with the reference's semantics."""
 
     def __init__(self, task: str):
-        self.task = task
+        self.spec = tasks.get(task)
         self.loss_sum = 0.0
         self.n_batches = 0
         self.per_batch = []
         self.scores = []
         self.labels = []
-        self.correct = 0
-        self.count = 0
 
     def add(self, gb: GraphBatch, scores: np.ndarray,
             loss: Optional[float]):
@@ -578,46 +578,23 @@ class _MetricAccumulator:
         if loss is not None:
             self.loss_sum += loss
             self.n_batches += 1
-        if self.task == "sbm":
-            nmask = gb.node_mask.cpu().numpy()
-            self.per_batch.append(M.accuracy_sbm(
-                scores[nmask], gb.node_labels.cpu().numpy()[nmask]))
-            return
-        gmask = gb.graph_mask.cpu().numpy()
-        labels = gb.labels.cpu().numpy()[gmask]
-        if self.task == "zinc":
-            self.per_batch.append(M.mae(scores[gmask].reshape(-1),
-                                        labels.reshape(-1)))
-        elif self.task == "superpixels":
-            self.correct += int((scores[gmask].argmax(-1)
-                                 == labels.reshape(-1)).sum())
-            self.count += len(labels)
+        t = self.spec
+        mask, labels = (getattr(gb, f).cpu().numpy() for f in t.fields)
+        if t.per_batch:
+            self.per_batch.append(t.score(scores[mask], labels[mask]))
         else:
-            self.scores.append(scores[gmask])
-            self.labels.append(labels)
+            self.scores.append(scores[mask])
+            self.labels.append(labels[mask])
 
     def result(self) -> Dict[str, float]:
+        t = self.spec
         out = {"loss": self.loss_sum / max(self.n_batches, 1)}
-        if self.task == "zinc":
-            out["mae"] = (float(np.mean(self.per_batch)) if self.per_batch
-                          else float("nan"))
-            out["objective"] = out["loss"]
-            return out
-        if self.task == "sbm":
-            out["acc"] = (float(np.mean(self.per_batch)) if self.per_batch
-                          else 0.0)
-            out["objective"] = out["loss"]
-            return out
-        if self.task == "superpixels":
-            out["acc"] = 100.0 * self.correct / max(self.count, 1)
-            out["objective"] = out["loss"]
-            return out
-        s = np.concatenate(self.scores) if self.scores else np.zeros((0, 1))
-        y = np.concatenate(self.labels) if self.labels else np.zeros((0, 1))
-        if self.task == "hiv":
-            out["rocauc"] = M.roc_auc(s, y) if len(s) else float("nan")
-            out["objective"] = out["rocauc"]
+        if t.per_batch:
+            out[t.metric] = (float(np.mean(self.per_batch)) if self.per_batch
+                             else t.empty)
         else:
-            out["ap"] = M.multitask_ap(s, y) if len(s) else float("nan")
-            out["objective"] = out["ap"]
+            s = np.concatenate(self.scores) if self.scores else np.zeros((0, 1))
+            y = np.concatenate(self.labels) if self.labels else np.zeros((0, 1))
+            out[t.metric] = t.score(s, y) if len(s) else t.empty
+        out["objective"] = out[t.metric] if t.maximize else out["loss"]
         return out

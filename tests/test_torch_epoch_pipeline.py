@@ -8,8 +8,9 @@ the block layout with replayed steps (FakeGraph, as in
 test_torch_train_graphs.py) and on eager micro-batched steps; the order of
 requests, steps and accounting, an epoch of one batch among them; the
 counters `epoch.readback_deferred` and `epoch.readback_ready`; and the
-benchmark's readback_ready_share reader.  On the card (marked `gpu`,
-skipped without one; `python -m pytest --noconftest -m gpu
+benchmark's readback_ready_share reader.  The order holds for the data-
+and edge-parallel trainers too, on a one-rank gloo mesh.  On the card
+(marked `gpu`, skipped without one; `python -m pytest --noconftest -m gpu
 tests/test_torch_epoch_pipeline.py`): the host values of every step, taken
 from pinned copies while later steps were issued, equal what the step's
 device tensors read at the end, and `epoch.readback_ready` counts what the
@@ -25,12 +26,16 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from dgn_tpu_torch import observe
 from dgn_tpu_torch.data.loader import BatchLoader
 from dgn_tpu_torch.data.synthetic import synthetic_zinc
 from dgn_tpu_torch.models import DGNConfig, zinc_model
 from dgn_tpu_torch.ops.scalers import degree_stats
+from dgn_tpu_torch.parallel import (DataParallelTrainer, EdgeParallelTrainer,
+                                    PartitionedLoader, StackedLoader,
+                                    make_mesh)
 from dgn_tpu_torch.train import trainer as T
 from dgn_tpu_torch.train.trainer import TrainParams, Trainer
 
@@ -60,10 +65,11 @@ def fixed_clock(monkeypatch):
         perf_counter=lambda: 1.0, perf_counter_ns=time.perf_counter_ns))
 
 
-def _model(seed=0):
+def _model(seed=0, bn_axis=None):
     degs = np.concatenate([np.bincount(g.dst, minlength=g.num_nodes)
                            for g in GRAPHS])
-    cfg = DGNConfig(hidden_dim=8, out_dim=8, L=2, avg_d=degree_stats(degs))
+    cfg = DGNConfig(hidden_dim=8, out_dim=8, L=2, avg_d=degree_stats(degs),
+                    bn_axis=bn_axis)
     return zinc_model(cfg, torch.Generator().manual_seed(seed))
 
 
@@ -152,9 +158,11 @@ class _Logged:
         self.log.append("end")
 
 
-def _logging_trainer(monkeypatch, log):
-    model, loss_fn = _model()
-    t = _trainer(model, loss_fn)
+def _logging_trainer(monkeypatch, log, t=None):
+    """t (default: a single-device trainer) with its steps and the metric
+    accumulator's adds logged."""
+    if t is None:
+        t = _trainer(*_model())
     inner = t.train_step
 
     def step(gb, aug=None):
@@ -172,11 +180,42 @@ def _logging_trainer(monkeypatch, log):
     return t
 
 
-def test_batch_n_plus_1_is_requested_before_step_n_is_accounted(monkeypatch):
+@pytest.fixture
+def one_rank(tmp_path):
+    """A mesh of one gloo rank, this process."""
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdzv",
+                            world_size=1, rank=0)
+    try:
+        yield make_mesh(1, device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def _three_batches(kind, request):
+    """(trainer, loader of 3 batches) of a kind of trainer: the
+    single-device one, or a rank trainer on a one-rank mesh with the
+    loader of its partition."""
+    if kind == "single":
+        return None, BatchLoader(GRAPHS[:24], BATCH, layout="mxu",
+                                 shuffle=True, seed=0)
+    mesh = request.getfixturevalue("one_rank")
+    model, loss_fn = _model(bn_axis=kind)
+    if kind == "dp":
+        return (DataParallelTrainer(model, loss_fn, TrainParams(seed=41),
+                                    mesh),
+                StackedLoader(GRAPHS[:24], BATCH, 1, shuffle=True, seed=0,
+                              layout="mxu"))
+    return (EdgeParallelTrainer(model, loss_fn, TrainParams(seed=41), mesh),
+            PartitionedLoader(GRAPHS[:24], BATCH, 1, shuffle=True, seed=0,
+                              layout="mxu"))
+
+
+@pytest.mark.parametrize("kind", ["single", "dp", "ep"])
+def test_batch_n_plus_1_is_requested_before_step_n_is_accounted(
+        monkeypatch, request, kind):
     log = []
-    t = _logging_trainer(monkeypatch, log)
-    three = BatchLoader(GRAPHS[:24], BATCH, layout="mxu", shuffle=True,
-                        seed=0)
+    t, three = _three_batches(kind, request)
+    t = _logging_trainer(monkeypatch, log, t)
     m = t.train_epoch(_Logged(three, log))
     assert log == ["pack 0", "step 0",
                    "pack 1", "account 0", "step 1",

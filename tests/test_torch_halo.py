@@ -21,7 +21,10 @@
         step alone: dgn_tpu cannot differentiate its pmax.
       - a planted fault, the exchange without its reverse backward, keeps
         the loss and fails both gradient checks;
-      - PartitionedLoader epoch metrics against dgn_tpu's.
+      - PartitionedLoader epoch metrics against dgn_tpu's; each rank's
+        collectives and metrics (HIV, and SBM's node-level view) against
+        a loop that reads every step back at once, and no edges/s in what
+        a rank reports.
   * The entry point: `--n_devices 2 --partition ep --device cpu` trains
     one epoch of a tiny config.
 Tolerances are tests/test_halo.py's: scores rtol / atol 2e-5, the loss
@@ -30,6 +33,7 @@ rtol 1e-5, gradients rtol 5e-4 / atol 1e-5.
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import threading
 
@@ -296,6 +300,8 @@ def runs(tmp_path_factory):
             graphs=_port_graphs(jsyn.synthetic_zinc(24, seed=7)))
     jobs["epoch"] = dict(_job("hiv-maxmin", *epoch_init), kind="epoch",
                          batch_size=8)
+    jobs["epoch-sbm"] = dict(_job("sbm-node", *inits["sbm-node"]),
+                             kind="epoch", batch_size=2)
     names = list(jobs)
     ranks = []
     thread = threading.Thread(target=lambda: ranks.append(launch.spawn(
@@ -466,6 +472,23 @@ def test_partitioned_epoch_matches_reference(runs):
                                        rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("name", ["epoch", "epoch-sbm"])
+def test_epoch_issues_the_collectives_of_a_serial_loop(runs, name):
+    """train_epoch reads step n back after batch n+1's pack: on each rank
+    the collectives it issues (name, op, the tensor sent) and the
+    metrics, in training and in evaluation, equal those of a loop that
+    reads every step back at once (test_torch_parallel_ranks.serial_epoch),
+    for HIV and for SBM's node-level view; no rank reports edges/s."""
+    _, ranks, _ = runs[name]
+    for r in ranks:
+        for split in ("train", "eval"):
+            assert r["piped", split] == r["serial", split]
+            calls = r["piped", split, "calls"]
+            assert calls and calls == r["serial", split, "calls"]
+        assert not {"edges_per_s", "edge_padding_efficiency"} \
+            & set(r["throughput"])
+
+
 TINY = ["--dataset", "ZINC", "--batch_size", "8", "--hidden_dim", "12",
         "--out_dim", "12", "--L", "2", "--synthetic_size", "20",
         "--epochs", "1"]
@@ -477,4 +500,7 @@ def test_entry_point_trains_edge_partitioned(tmp_path):
     assert report["n_devices"] == 2 and report["epochs_run"] == 1
     assert all(math.isfinite(v) for split in report["final"].values()
                for v in split.values())
-    assert len((tmp_path / "metrics.jsonl").read_text().splitlines()) == 1
+    lines = (tmp_path / "metrics.jsonl").read_text().splitlines()
+    assert len(lines) == 1
+    assert "train" in json.loads(lines[0])
+    assert "edges_per_s" not in json.loads(lines[0])

@@ -17,6 +17,8 @@ from dgn_tpu_torch.parallel import (EdgeParallelTrainer, PartitionedLoader,
                                     make_mesh, partition_batch)
 from dgn_tpu_torch.train.trainer import TrainParams
 
+from test_torch_parallel_ranks import piped_and_serial
+
 
 def build(job, bn_axis="ep"):
     """The job's port model and loss, its weights dgn_tpu's (flax trees of
@@ -61,8 +63,7 @@ class MissingExchangeBackward(torch.autograd.Function):
 def _trainer(job, mesh):
     model, loss_fn = build(job)
     return EdgeParallelTrainer(model, loss_fn, TrainParams(**job["train"]),
-                               mesh, task=job["task"],
-                               node_level=job["task"] == "sbm")
+                               mesh, task=job["task"])
 
 
 def _step_job(job, mesh):
@@ -118,17 +119,16 @@ def _exchange_job(job, mesh):
 
 def _epoch_job(job, mesh):
     """One train_epoch over a shuffled PartitionedLoader and one evaluate
-    over a fixed one."""
-    trainer = _trainer(job, mesh)
-
+    over a fixed one, and the same through serial_epoch
+    (test_torch_parallel_ranks.piped_and_serial)."""
     def loader(shuffle):
         return PartitionedLoader(job["graphs"], job["batch_size"], mesh.size,
                                  rank=mesh.rank, shuffle=shuffle,
                                  seed=job["train"]["seed"],
                                  layout=job["layout"])
 
-    return {"train": trainer.train_epoch(loader(True)),
-            "eval": trainer.evaluate(loader(False))}
+    _, out = piped_and_serial(lambda: _trainer(job, mesh), loader)
+    return dict(out, train=out["piped", "train"], eval=out["piped", "eval"])
 
 
 JOBS = {"step": _step_job, "exchange": _exchange_job, "epoch": _epoch_job}

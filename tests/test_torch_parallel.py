@@ -22,7 +22,9 @@
     batch means, which departs from the one-device loss on the same
     graphs (ROADMAP C4): pinned here.
   * An epoch: train_epoch and evaluate over shuffled and fixed loaders
-    (HIV ROC-AUC from every shard's scores) against dgn_tpu's.
+    (HIV ROC-AUC from every shard's scores) against dgn_tpu's; each rank's
+    collectives and metrics against a loop that gathers every step at
+    once, and no edges/s in what a rank reports.
   * StackedLoader's shards and escapes == dgn_tpu's, host only (tests/
     test_parallel.py:120-141's case), and shard_fits == pack_graphs.
   * The entry point with --n_devices 2 --device cpu, --n_devices 2
@@ -33,6 +35,7 @@ All the 2-rank jobs run in one spawn (a module fixture) with a deadline.
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import threading
 
@@ -470,6 +473,24 @@ def test_epoch_metrics_from_every_shard_match_reference(runs):
     _assert_state(r0["state"], ref["state"], STEP)
 
 
+def test_epoch_issues_the_collectives_of_a_serial_loop(runs):
+    """train_epoch gathers step n's shards after batch n+1's pack: on each
+    rank the collectives it issues (name, op, the tensor sent) and the
+    metrics, in training and in evaluation, equal those of a loop that
+    gathers every step at once (test_torch_parallel_ranks.serial_epoch),
+    one all-gather a batch; no rank reports edges/s."""
+    _, r0, r1, job = runs["epoch"]
+    n_batches = -(-len(job["graphs"]) // (job["per_device"] * D))
+    for r in (r0, r1):
+        for split in ("train", "eval"):
+            assert r["piped", split] == r["serial", split]
+            calls = r["piped", split, "calls"]
+            assert calls == r["serial", split, "calls"]
+            assert [c[0] for c in calls].count("all_gather") == n_batches
+        assert not {"edges_per_s", "edge_padding_efficiency"} \
+            & set(r["throughput"])
+
+
 # ------------------------------------------------------- StackedLoader
 
 @pytest.mark.parametrize("layout", ["mxu", "flat"])
@@ -565,8 +586,11 @@ def test_entry_point_trains_on_two_gloo_ranks(tmp_path):
     assert report["n_devices"] == 2 and report["epochs_run"] == 1
     assert all(math.isfinite(v) for split in report["final"].values()
                for v in split.values())
-    # rank 0 alone writes the metric stream
-    assert len((tmp_path / "metrics.jsonl").read_text().splitlines()) == 1
+    # rank 0 alone writes the metric stream, without a rank's edges/s
+    lines = (tmp_path / "metrics.jsonl").read_text().splitlines()
+    assert len(lines) == 1
+    assert "train" in json.loads(lines[0])
+    assert "edges_per_s" not in json.loads(lines[0])
 
 
 def test_entry_point_refuses_what_it_cannot_run(monkeypatch):

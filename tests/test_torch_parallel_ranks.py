@@ -6,6 +6,7 @@ Each job is a dict; `run_jobs` runs a list of them in one process group
 and returns one result per job, so a test pays for one spawn."""
 from __future__ import annotations
 
+import contextlib
 
 import torch
 import torch.distributed as dist
@@ -89,12 +90,87 @@ def keep_grads(trainer) -> dict:
     return grads
 
 
+COLLECTIVES = ("all_reduce", "all_gather", "all_to_all_single", "broadcast")
+
+
+@contextlib.contextmanager
+def recording_collectives():
+    """A list that collects, in order, every torch.distributed collective
+    this rank issues inside the block: (name, reduce op, the shape, dtype
+    and sum of the tensor the rank sends)."""
+    calls, saved = [], {name: getattr(dist, name) for name in COLLECTIVES}
+
+    def recorded(name, fn):
+        def call(*args, **kwargs):
+            sent = args[1] if name in ("all_gather", "all_to_all_single") \
+                else args[0]
+            calls.append((name, str(kwargs.get("op", "")), tuple(sent.shape),
+                          str(sent.dtype), sent.detach().double().sum().item()))
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(dist, name, recorded(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def serial_epoch(trainer, loader, train: bool):
+    """The metrics of one train epoch (train) or evaluation of a rank
+    trainer, from a loop that reads each step back before the next batch
+    is packed: the data-parallel trainer's gather_shards, the
+    edge-parallel one's loss view."""
+    from dgn_tpu_torch.parallel import DataParallelTrainer
+    from dgn_tpu_torch.train.trainer import _MetricAccumulator
+    acc = _MetricAccumulator(trainer.task)
+    for gb in loader:
+        if train:
+            loss, scores = trainer.train_step(gb)
+        else:
+            scores, loss = trainer.eval_step(gb)
+        if isinstance(trainer, DataParallelTrainer):
+            view, host = trainer.gather_shards(gb, scores)
+        else:
+            view, host = trainer._view, scores.cpu().numpy()
+        acc.add(view, host, float(loss))
+    return acc.result()
+
+
+def piped_and_serial(make_trainer, loader):
+    """One train_epoch (over loader(True)) and one evaluate (over
+    loader(False)) of a rank trainer, and the same through serial_epoch on
+    a second trainer made alike: each side's metrics and collectives, and
+    the first's _last_throughput and trainer."""
+    out = {}
+    for side in ("piped", "serial"):
+        trainer = make_trainer()
+        for split, train in (("train", True), ("eval", False)):
+            with recording_collectives() as calls:
+                if side == "serial":
+                    m = serial_epoch(trainer, loader(train), train)
+                elif train:
+                    m = trainer.train_epoch(loader(train))
+                else:
+                    m = trainer.evaluate(loader(train))
+            out[side, split] = m
+            out[side, split, "calls"] = calls
+        if side == "piped":
+            out["throughput"], first = trainer._last_throughput, trainer
+    return first, out
+
+
 def _epoch_job(job, mesh):
     """One train_epoch and one evaluate, each over a StackedLoader of
-    job["graphs"] (the train one shuffled)."""
-    model, loss_fn = build(job)
-    trainer = DataParallelTrainer(model, loss_fn, TrainParams(**job["train"]),
-                                  mesh, task=job["task"])
+    job["graphs"] (the train one shuffled), and the same through
+    serial_epoch (piped_and_serial)."""
+    def make_trainer():
+        model, loss_fn = build(job)
+        return DataParallelTrainer(model, loss_fn,
+                                   TrainParams(**job["train"]), mesh,
+                                   task=job["task"])
 
     def loader(shuffle):
         return StackedLoader(job["graphs"], job["per_device"], mesh.size,
@@ -102,9 +178,9 @@ def _epoch_job(job, mesh):
                              seed=job["train"]["seed"], n_pad=job["n_pad"],
                              e_pad=job["e_pad"], layout=job["layout"])
 
-    train = trainer.train_epoch(loader(True))
-    return {"train": train, "eval": trainer.evaluate(loader(False)),
-            "state": _state(trainer.model)}
+    trainer, out = piped_and_serial(make_trainer, loader)
+    return dict(out, train=out["piped", "train"], eval=out["piped", "eval"],
+                state=_state(trainer.model))
 
 
 JOBS = {"step": _step_job, "epoch": _epoch_job}
