@@ -1865,9 +1865,9 @@ def pack_phase(torch, np) -> None:
     random train batches of the real-file datasets: the flat layout at its
     worst-case pads (every batch fits) with numpy and with the native
     packer, in turns, their outputs equal, for ZINC and HIV; and the block
-    layout at the pads of the path's own train loader, escapes included
-    (`_pack_one`), for ZINC and CIFAR10.  Fails unless the native packer
-    built here."""
+    layout, which packs natively once the packer is built, at the pads of
+    the path's own train loader, escapes included (`_pack_one`), for ZINC
+    and CIFAR10.  Fails unless the native packer built here."""
     from dgn_tpu_torch.data.loader import _order_for_layout
     from dgn_tpu_torch.graph import bucket_sizes_for, pack_graphs
     from dgn_tpu_torch.runtime import native
@@ -1916,8 +1916,8 @@ def pack_phase(torch, np) -> None:
             loader._pack_one(batch)
             ms.append((time.perf_counter() - t) * 1e3)
         report(f"{key}, block {loader_label(loader)}, "
-               f"{loader.n_escapes - escapes0} escape repacks", "numpy", size,
-               ms)
+               f"{loader.n_escapes - escapes0} escape repacks", "native",
+               size, ms)
 
 
 def real_phase(torch, np):

@@ -6,7 +6,11 @@ batch by descending node count (block placement is next-fit and
 order-sensitive), and pack it at a fixed per-loader geometry: the flat
 layout (`layout="flat"`, the default, as in dgn_tpu) or the block one
 (`layout="mxu"`).  A batch that overflows that geometry is repacked
-at its exact need ("escape").  With micro_batches=K each batch is yielded as
+at its exact need ("escape").  A block-layout BatchLoader that packs every
+epoch, with the native packer built, keeps one `graph.GraphTable` of its
+graphs (each field concatenated once) and draws each batch as rows of it,
+which the packer reads with no per-graph Python; it packs the same arrays
+as the list of those graphs.  With micro_batches=K each batch is yielded as
 a list of K packed micro-batches (the trainer accumulates their gradients
 into one step).  `BucketedLoader` (`--n_buckets K`) splits the graphs into
 K size classes, each packed at its own tight geometry.  Spans (observe.py):
@@ -19,11 +23,11 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from .. import observe
-from ..graph import (GraphBatch, GraphData, bucket_sizes_for,
-                     mxu_bucket_sizes, mxu_pair_pad, mxu_pairs_needed,
-                     pack_graphs, pack_requirements, round_up,
-                     typical_bucket_sizes)
+from .. import observe, runtime
+from ..graph import (GraphBatch, GraphData, GraphRows, GraphTable,
+                     bucket_sizes_for, mxu_bucket_sizes, mxu_pair_pad,
+                     mxu_pairs_needed, pack_graphs, pack_requirements,
+                     round_up, typical_bucket_sizes)
 
 LAYOUTS = ("flat", "mxu")
 
@@ -50,6 +54,8 @@ def _order_for_layout(batch, layout: str):
     and every geometry estimate simulates that order); the flat layout
     keeps the drawn order."""
     if layout == "mxu":
+        if isinstance(batch, GraphRows):
+            return batch.by_size()
         return sorted(batch, key=lambda g: -g.num_nodes)
     return list(batch)
 
@@ -129,6 +135,9 @@ class BatchLoader:
                          if layout == "mxu" else None)
         self.cache = cache and not shuffle
         self._cached: Optional[List[GraphBatch]] = None
+        self.table = (GraphTable.over(self.graphs)
+                      if layout == "mxu" and not self.cache
+                      and runtime.available() else None)
 
     def __len__(self):
         return (len(self.graphs) + self.batch_size - 1) // self.batch_size
@@ -178,7 +187,8 @@ class BatchLoader:
         for i in range(0, len(idx), bs):
             with observe.span("loader.pack"):
                 batch = _order_for_layout(
-                    [self.graphs[j] for j in idx[i:i + bs]], self.layout)
+                    self.table.rows(idx[i:i + bs]) if self.table is not None
+                    else [self.graphs[j] for j in idx[i:i + bs]], self.layout)
                 gb = (self._pack_one(batch) if self.micro_batches == 1
                       else self._pack_micros(batch))
             if out is not None:

@@ -12,10 +12,11 @@ follow one another on the node axis, real edges are stable-sorted by
 `ops/segment.py` reduce over that edge list.  Block ("mxu"): nodes are
 placed so no graph straddles a 128-node block, edges are chunked per
 (src_block, dst_block) pair, and the graph axis is 128-aligned
-(`ops/mxu.py`).  The flat layout's edge pipeline (offsets, the (dst, src)
-sort, masks, normalisers, in-degrees) runs in the port's native packer
-(`runtime/packer.cpp`) when it is built, with the same arrays bit for bit
-as the numpy path.
+(`ops/mxu.py`).  The port's native packer (`runtime/packer.cpp`) runs,
+when it is built, the flat layout's edge pipeline (offsets, the (dst, src)
+sort, masks, normalisers, in-degrees) and the whole block pack (placement,
+edge arrangement, node and edge arrays, the block layout), with the same
+arrays bit for bit as the numpy paths.
 
 Edge-partitioned execution (parallel/halo.py) carries a `HaloSpec` on each
 rank's batch: the rank's node axis is [own | halo], the halo rows copies
@@ -31,6 +32,8 @@ gloo.
 from __future__ import annotations
 
 import dataclasses
+import math
+from collections import abc
 from typing import Optional, Sequence
 
 import numpy as np
@@ -254,18 +257,21 @@ def pack_graphs(graphs: Sequence[GraphData], *,
     block layout when mxu_layout, else flat (dgn_tpu/graph.py:178-332).
     Flat pads default to the exact totals (no pad node, no pad edge).
 
-    native (flat layout only; the block layout ignores it, as dgn_tpu's
-    does): pack the edges with the C++ packer (runtime/); None uses it
-    when it is built, True requires it (RuntimeError without it), False
-    packs with numpy.  Both give the same arrays."""
+    native: pack with the C++ packer (runtime/): the flat layout's edges,
+    or the whole block-layout batch; None uses it when it is built, True
+    requires it (RuntimeError without it), False packs with numpy.  Both
+    give the same arrays.  A block batch counts `pack.native` or
+    `pack.numpy` by the path that packed it."""
+    if native is None:
+        from .runtime import available
+        native = available()
     with observe.span("pack.arrays"):
         if mxu_layout:
-            return _pack_graphs_mxu(graphs, n_pad=n_pad, e_pad=e_pad,
-                                    g_pad=g_pad, k_eig=k_eig,
-                                    n_pairs_pad=n_pairs_pad)
-        if native is None:
-            from .runtime import available
-            native = available()
+            pack = _pack_graphs_mxu_native if native else _pack_graphs_mxu
+            gb = pack(graphs, n_pad=n_pad, e_pad=e_pad, g_pad=g_pad,
+                      k_eig=k_eig, n_pairs_pad=n_pairs_pad)
+            observe.count("pack.native" if native else "pack.numpy")
+            return gb
         pack = _pack_graphs_native if native else _pack_graphs_flat
         return pack(graphs, n_pad=n_pad, e_pad=e_pad, g_pad=g_pad,
                     k_eig=k_eig)
@@ -656,8 +662,9 @@ def _pack_graphs_mxu(graphs: Sequence[GraphData], *,
     snorm_e[real, 0] = np.sqrt(1.0 / np.maximum(n_edges[eg], 1))
     edge_feat = None
     if graphs[0].edge_feat is not None:
+        ef0 = np.asarray(graphs[0].edge_feat)
         ef_cat = np.concatenate([np.asarray(gr.edge_feat) for gr in graphs]) \
-            if tot_e else np.zeros((0,) + np.shape(graphs[0].edge_feat)[1:])
+            if tot_e else np.zeros((0,) + ef0.shape[1:], ef0.dtype)
         ef_dtype = ef_cat.dtype if ef_cat.dtype.kind == "f" else np.int32
         edge_feat = np.zeros((e_pad,) + tuple(ef_cat.shape[1:]), dtype=ef_dtype)
         edge_feat[real] = ef_cat[order[edge_valid]]
@@ -677,6 +684,222 @@ def _pack_graphs_mxu(graphs: Sequence[GraphData], *,
         edge_feat=t(edge_feat), snorm_e=t(snorm_e), graph_mask=t(graph_mask),
         n_nodes=t(n_nodes), n_edges=t(n_edges), labels=t(labels),
         node_labels=t(node_labels), pos_enc=t(pos_enc), mxu=layout)
+
+
+def _eig_rows(gr: GraphData, k_eig: int) -> np.ndarray:
+    """gr's eigenvector rows cut or padded with zeros to k_eig columns."""
+    e = (np.zeros((gr.num_nodes, 0), np.float32) if gr.eig is None
+         else gr.eig[:, :k_eig])
+    return np.pad(e, ((0, 0), (0, k_eig - e.shape[1])))
+
+
+# fields whose dtype and shape past the first axis (a label's whole shape)
+# a GraphTable over a dataset requires to agree between its graphs
+_TABLE_FIELDS = ("node_feat", "eig", "edge_feat", "label", "node_labels",
+                 "pos_enc")
+
+
+def _gather_rows(out: np.ndarray, at: np.ndarray, table: np.ndarray,
+                 rows: np.ndarray) -> None:
+    """out[at] = table[rows], each row of several values moved as one
+    opaque item where the dtypes agree (several times faster than numpy's
+    row-wise fancy indexing)."""
+    width = table.itemsize * math.prod(table.shape[1:])
+    if table.ndim > 1 and table.dtype == out.dtype and width:
+        item = np.dtype((np.void, width))
+        out = out.reshape(len(out), -1).view(item).reshape(-1)
+        table = table.reshape(len(table), -1).view(item).reshape(-1)
+    out[at] = table[rows]
+
+
+class GraphTable:
+    """Graphs with each field concatenated once, so that a block-layout
+    batch of them packs in one native call (runtime/packer.cpp
+    dgn_pack_block reads each graph's edges from its first row) with its
+    features following by row index, and no per-graph Python.
+    pack_graphs builds one over a batch; a loader keeps one over its
+    dataset (`over`) and hands pack_graphs `GraphRows` of it.  The arrays
+    follow the first graph as _pack_graphs_mxu's follow the batch's first
+    graph: the node and edge features keep a float dtype and take int32
+    otherwise, eig is cut or padded to k_eig columns."""
+
+    def __init__(self, graphs: Sequence[GraphData],
+                 k_eig: Optional[int] = None):
+        g0 = graphs[0]
+        self.graphs = graphs
+        self.k_eig = (k_eig if k_eig is not None
+                      else g0.eig.shape[1] if g0.eig is not None else 0)
+        self.n_nodes = np.array([gr.num_nodes for gr in graphs], np.int32)
+        self.n_edges = np.array([len(gr.src) for gr in graphs], np.int32)
+        self.node_first = np.zeros(len(graphs), np.int64)
+        self.edge_first = np.zeros(len(graphs), np.int64)
+        np.cumsum(self.n_nodes[:-1], out=self.node_first[1:])
+        np.cumsum(self.n_edges[:-1], out=self.edge_first[1:])
+        self.src = np.concatenate([gr.src for gr in graphs], dtype=np.int32)
+        self.dst = np.concatenate([gr.dst for gr in graphs], dtype=np.int32)
+
+        def cat(field):
+            if getattr(g0, field) is None:
+                return None
+            return np.ascontiguousarray(
+                np.concatenate([getattr(gr, field) for gr in graphs]))
+
+        self.node_feat = cat("node_feat")
+        nf0 = np.asarray(g0.node_feat)
+        self.node_feat_dtype = nf0.dtype if nf0.dtype.kind == "f" else np.int32
+        self.eig = None
+        if self.k_eig:
+            rows = [gr.eig for gr in graphs]
+            if not all(e is not None and e.shape[1] == self.k_eig
+                       for e in rows):
+                rows = [_eig_rows(gr, self.k_eig) for gr in graphs]
+            self.eig = np.ascontiguousarray(np.concatenate(rows))
+        self.node_labels = cat("node_labels")
+        self.pos_enc = cat("pos_enc")
+        self.edge_feat = None
+        if g0.edge_feat is not None:
+            ef0 = np.asarray(g0.edge_feat)
+            self.edge_feat = (cat("edge_feat") if self.n_edges.sum()
+                              else np.zeros((0,) + ef0.shape[1:], ef0.dtype))
+        self.labels = None
+        if g0.label is not None:
+            self.labels = np.array([gr.label for gr in graphs])
+            lb0 = np.asarray(g0.label)
+            self.label_dtype = np.float32 if lb0.dtype.kind == "f" else lb0.dtype
+
+    @classmethod
+    def over(cls, graphs: Sequence[GraphData]) -> Optional["GraphTable"]:
+        """A table over a dataset's graphs, or None where a field's
+        presence, dtype or trailing shape differs between them (a batch's
+        arrays follow its own first graph, which one table cannot)."""
+        def kind(gr):
+            out = []
+            for f in _TABLE_FIELDS:
+                a = getattr(gr, f)
+                a = None if a is None else np.asarray(a)
+                out.append(None if a is None else (
+                    a.dtype, a.shape if f == "label" else a.shape[1:]))
+            return tuple(out)
+
+        if not graphs or len({kind(gr) for gr in graphs}) != 1:
+            return None
+        return cls(graphs)
+
+    def rows(self, ids) -> "GraphRows":
+        return GraphRows(self, np.asarray(ids, np.int64))
+
+    def pack(self, ids: np.ndarray, *, n_pad: Optional[int],
+             e_pad: Optional[int], g_pad: Optional[int],
+             n_pairs_pad: Optional[int] = None) -> GraphBatch:
+        """The graphs ids, in that order, packed under the block layout:
+        _pack_graphs_mxu's arrays, bit for bit."""
+        from .ops.mxu import MXULayout
+        from .runtime import pack_block
+
+        g = len(ids)
+        g_pad = round_up(int(g_pad if g_pad is not None else g), _TILE)
+        if n_pad is not None and int(n_pad) % _TILE:
+            raise ValueError(f"mxu n_pad must be a multiple of {_TILE}")
+        if e_pad is not None and int(e_pad) % _TILE:
+            raise ValueError(f"mxu e_pad must be a multiple of {_TILE}")
+        n_nodes, n_edges = self.n_nodes[ids], self.n_edges[ids]
+        pb = pack_block(n_nodes, n_edges, self.node_first[ids],
+                        self.edge_first[ids], self.src, self.dst,
+                        n_pad, e_pad, g_pad, n_pairs_pad)
+        n_pad, e_pad = pb["n_pad"], pb["e_pad"]
+        slot, row = pb["node_slot"], pb["node_row"]
+
+        def nodes(table, dtype):
+            if table is None:
+                return None
+            out = np.zeros((n_pad,) + table.shape[1:], dtype)
+            _gather_rows(out, slot, table, row)
+            return out
+
+        edge_feat = None
+        if self.edge_feat is not None:
+            ef = self.edge_feat
+            edge_feat = np.zeros((e_pad,) + ef.shape[1:],
+                                 ef.dtype if ef.dtype.kind == "f" else np.int32)
+            real = pb["edge_mask"]
+            edge_feat[real] = ef[pb["perm"][real]]
+        graph_mask = np.zeros((g_pad,), bool)
+        graph_mask[:g] = True
+        nn_ = np.zeros((g_pad,), np.int32)
+        nn_[:g] = n_nodes
+        ne_ = np.zeros((g_pad,), np.int32)
+        ne_[:g] = n_edges
+        labels = None
+        if self.labels is not None:
+            labels = np.zeros((g_pad,) + self.labels.shape[1:],
+                              self.label_dtype)
+            labels[:g] = self.labels[ids]
+
+        t = torch.from_numpy
+        layout = MXULayout(
+            local_src=t(pb["local_src"]), local_dst=t(pb["local_dst"]),
+            edge_chunk_src=t(pb["edge_chunk_src"]),
+            edge_chunk_dst=t(pb["edge_chunk_dst"]),
+            local_graph=t(pb["local_graph"]),
+            node_chunk_graph=t(pb["node_chunk_graph"]),
+            n_node_blocks=n_pad // _TILE, n_graph_blocks=g_pad // _TILE,
+            chunk_pair=t(pb["chunk_pair"]), pair_src=t(pb["pair_src"]),
+            pair_dst=t(pb["pair_dst"]), n_pairs=pb["n_pairs"],
+            pair_chunk_order=t(pb["pair_chunk_order"]),
+            pair_sorted_ids=t(pb["pair_sorted_ids"]),
+            pair_covered=t(pb["pair_covered"]),
+            pair_real_chunk_order=t(pb["pair_real_chunk_order"]),
+            pair_chunk_start=t(pb["pair_chunk_start"]))
+        tt = _tensors
+        return GraphBatch(
+            node_feat=tt(nodes(self.node_feat, self.node_feat_dtype)),
+            node_mask=t(pb["node_mask"]), node_graph=t(pb["node_graph"]),
+            eig=tt(nodes(self.eig, np.float32) if self.k_eig
+                   else np.zeros((n_pad, 0), np.float32)),
+            in_degree=t(pb["in_degree"]), snorm_n=t(pb["snorm_n"]),
+            src=t(pb["src"]), dst=t(pb["dst"]), edge_mask=t(pb["edge_mask"]),
+            edge_feat=tt(edge_feat), snorm_e=t(pb["snorm_e"]),
+            graph_mask=t(graph_mask), n_nodes=t(nn_), n_edges=t(ne_),
+            labels=tt(labels),
+            node_labels=tt(nodes(self.node_labels, np.int32)),
+            pos_enc=tt(nodes(self.pos_enc, np.float32)), mxu=layout)
+
+
+class GraphRows(abc.Sequence):
+    """Graphs of a GraphTable by index: the sequence of their GraphData,
+    which pack_graphs packs from the table."""
+
+    def __init__(self, table: GraphTable, ids: np.ndarray):
+        self.table, self.ids = table, ids
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return GraphRows(self.table, self.ids[i])
+        return self.table.graphs[self.ids[i]]
+
+    def by_size(self) -> "GraphRows":
+        """Descending node count, ties in their order (as sorted())."""
+        return GraphRows(self.table, self.ids[np.argsort(
+            -self.table.n_nodes[self.ids], kind="stable")])
+
+
+def _pack_graphs_mxu_native(graphs: Sequence[GraphData], *,
+                            n_pad: Optional[int], e_pad: Optional[int],
+                            g_pad: Optional[int], k_eig: Optional[int],
+                            n_pairs_pad: Optional[int] = None) -> GraphBatch:
+    """_pack_graphs_mxu in one C++ call (runtime/packer.cpp
+    dgn_pack_block: the placement, the edge arrangement, the node and edge
+    arrays and every block-layout array), from the table that GraphRows
+    carry, or from one built over the batch (each field concatenated
+    once)."""
+    if not (isinstance(graphs, GraphRows)
+            and k_eig in (None, graphs.table.k_eig)):
+        graphs = GraphTable(graphs, k_eig).rows(np.arange(len(graphs)))
+    return graphs.table.pack(graphs.ids, n_pad=n_pad, e_pad=e_pad,
+                             g_pad=g_pad, n_pairs_pad=n_pairs_pad)
 
 
 def mxu_pairs_needed(batch: Sequence[GraphData]) -> int:

@@ -44,8 +44,10 @@ replayed CUDA graph adds the launches its capture recorded
 Where the spans are (names are part of the record): data/loader.py
 `loader.shuffle`, `loader.pack` (one batch, from next() to its yield) and
 inside it `loader.escape` (the repack at the exact need); graph.py
-`pack.arrays` (pack_graphs) and inside it `pack.block_layout`
-(build_mxu_layout); train/trainer.py `step` with `step.optimizer`
+`pack.arrays` (pack_graphs) and inside it, on the numpy block path,
+`pack.block_layout` (build_mxu_layout), with counters `pack.native` and
+`pack.numpy` (the block batches each path packed); train/trainer.py
+`step` with `step.optimizer`
 (zero_grad and the learning rate before the passes, Adam's step after
 them), `step.h2d`, `step.forward`, `step.backward`, `step.grad_sync`, and
 per batch of train_epoch `epoch.readback` and `epoch.account`, then

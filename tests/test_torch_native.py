@@ -1,5 +1,5 @@
-"""The port's native packer (dgn_tpu_torch/runtime) == its numpy flat path
-== dgn_tpu's numpy flat path, with ==.
+"""The port's native packer (dgn_tpu_torch/runtime) == its numpy paths
+== dgn_tpu's numpy paths, with ==, under both layouts.
 
 The port's ctypes binding of its own runtime/packer.cpp, built with g++
 into dgn_tpu_torch/_build/ (never dgn_tpu/runtime/_build), against
@@ -9,6 +9,18 @@ and ogbg-mol graphs), plus edge features, positional encodings and node
 labels; overflow raises ValueError; an edge-free batch packs; a failed
 build logs one warning, leaves `native=None` on the numpy path and makes
 `native=True` raise.
+
+The block layout (dgn_pack_block): every GraphBatch field and every
+MXULayout array of the native pack == the numpy pack == dgn_tpu's
+`pack_graphs(mxu_layout=True)` (whose layout lacks the adjacency kernel's
+walk), dtypes included, on ZINC-like batches at the loader's and at
+loose pads, the 150-node SBM batch, superpixels, ogbg-mol with NaN
+labels, edge-free graphs, trailing all-pad chunks, 128 and 129 graphs,
+from the list of graphs and from rows of a dataset's GraphTable (which a
+dataset whose graphs disagree on a field's dtype or width does not get);
+node, graph, edge and pair overflow raise ValueError on both paths; a
+tight loader escapes on the same batches either way; the counters
+`pack.native` and `pack.numpy` count the block batches each path packs.
 """
 from __future__ import annotations
 
@@ -20,13 +32,16 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_pack import _GB_FIELDS
+from test_torch_pack import _GB_FIELDS, _assert_same_batch, _to_port
 
 from dgn_tpu import graph as jgraph
 from dgn_tpu.data import synthetic as jsyn
 
 from dgn_tpu_torch import graph as tgraph
+from dgn_tpu_torch import observe
+from dgn_tpu_torch import runtime
 from dgn_tpu_torch.data import synthetic as tsyn
+from dgn_tpu_torch.data.loader import BatchLoader
 from dgn_tpu_torch.runtime import native
 
 torch.set_num_threads(1)
@@ -135,3 +150,215 @@ def test_failed_build_warns_once_and_packs_with_numpy(tmp_path, monkeypatch,
     assert "g++" in records[0].getMessage()
     assert "error" in records[0].getMessage()
     _assert_same(tgraph.pack_graphs(graphs, native=False), got)
+
+
+# ------------------------------------------------------------ block layout
+
+
+def _assert_same_layout(want, got):
+    """Every MXULayout field, the adjacency kernel's walk included."""
+    for f in dataclasses.fields(want):
+        a, b = getattr(want, f.name), getattr(got, f.name)
+        if isinstance(a, torch.Tensor):
+            a, b = a.numpy(), b.numpy()
+            assert a.dtype == b.dtype and a.shape == b.shape, (
+                f.name, a.dtype, b.dtype, a.shape, b.shape)
+            np.testing.assert_array_equal(b, a, err_msg=f.name)
+        else:
+            assert a == b, (f.name, a, b)
+
+
+def _block_case(case):
+    """(dgn_tpu's graphs, pack keywords) of one parity case."""
+    if case in ("zinc_loader_pads", "zinc_loose_pads"):
+        graphs = jsyn.synthetic_zinc(48, seed=7)
+        for g in graphs:             # edge features and pos_enc too
+            g.edge_feat = np.arange(g.num_edges, dtype=np.int32) % 3 + 1
+            g.pos_enc = g.eig[:, 1:4]
+        graphs = sorted(graphs, key=lambda g: -g.num_nodes)
+        if case == "zinc_loose_pads":
+            return graphs, {}
+        tl = BatchLoader(_to_port(graphs), batch_size=48, shuffle=True,
+                         layout="mxu", geometry="typical")
+        return graphs, dict(n_pad=tl.n_pad, e_pad=tl.e_pad, g_pad=tl.g_pad,
+                            n_pairs_pad=tl.pair_pad)
+    if case == "sbm_multiblock":
+        return jsyn.synthetic_sbm(4, seed=11, nodes=150), {}
+    if case == "superpixels":
+        return jsyn.synthetic_superpixels(6, seed=2), {}
+    if case == "ogb_mol_nan":
+        return jsyn.synthetic_ogb_mol(24, seed=3, n_tasks=128,
+                                      nan_frac=0.2), {}
+    if case == "no_edges":
+        graphs = [jgraph.GraphData(
+            num_nodes=n, src=np.zeros(0, np.int32), dst=np.zeros(0, np.int32),
+            node_feat=np.arange(n, dtype=np.int32) % 5,
+            eig=np.full((n, 3), 0.5, np.float32),
+            edge_feat=np.zeros((0, 2), np.float32),
+            label=np.array([float(n)], np.float32)) for n in (3, 1, 7)]
+        return graphs, {}
+    if case == "trailing_pad_chunks":
+        return jsyn.synthetic_zinc(12, seed=4), dict(n_pad=1024, e_pad=4096)
+    if case == "graphs_128":
+        return jsyn.synthetic_zinc(128, seed=5), {}
+    if case == "graphs_129":
+        return jsyn.synthetic_zinc(129, seed=6), dict(g_pad=256)
+    raise KeyError(case)
+
+
+BLOCK_CASES = ["zinc_loader_pads", "zinc_loose_pads", "sbm_multiblock",
+               "superpixels", "ogb_mol_nan", "no_edges",
+               "trailing_pad_chunks", "graphs_128", "graphs_129"]
+
+
+@pytest.mark.parametrize("case", BLOCK_CASES)
+def test_native_block_pack_matches_numpy_and_reference(case):
+    graphs, kw = _block_case(case)
+    want = jgraph.pack_graphs(graphs, mxu_layout=True, **kw)
+    numpy_path = tgraph.pack_graphs(_to_port(graphs), mxu_layout=True,
+                                    native=False, **kw)
+    native_path = tgraph.pack_graphs(_to_port(graphs), mxu_layout=True,
+                                     native=True, **kw)
+    auto = tgraph.pack_graphs(_to_port(graphs), mxu_layout=True, **kw)
+    table = tgraph.GraphTable.over(_to_port(graphs))     # a loader's table
+    rows = table.rows(np.arange(len(graphs)))
+    from_table = tgraph.pack_graphs(rows, mxu_layout=True, **kw)
+    for got in (numpy_path, native_path, auto, from_table):
+        _assert_same_batch(want, got)
+        _assert_same_layout(numpy_path.mxu, got.mxu)
+    lay = native_path.mxu
+    if case == "sbm_multiblock":
+        off = lay.pair_src.numpy() != lay.pair_dst.numpy()
+        assert np.any(off & lay.pair_covered.numpy())
+    if case == "trailing_pad_chunks":
+        em = native_path.edge_mask.numpy().reshape(-1, 128)
+        assert not em[-1].any() and em[0].any()
+    if case in ("graphs_128", "graphs_129"):
+        assert lay.n_graph_blocks == (1 if case == "graphs_128" else 2)
+        assert len(np.unique(lay.node_chunk_graph.numpy())) == \
+            lay.n_graph_blocks
+
+
+def test_table_rows_pack_as_their_graphs():
+    """Rows of a dataset's table, in any order and with another k_eig,
+    pack as the list of their graphs; a dataset whose graphs disagree on a
+    field's dtype or width gets no table."""
+    graphs = tsyn.synthetic_zinc(40, seed=8)
+    table = tgraph.GraphTable.over(graphs)
+    ids = np.array([7, 3, 31, 0, 12, 39, 3])
+    rows = table.rows(ids).by_size()
+    batch = sorted([graphs[i] for i in ids], key=lambda g: -g.num_nodes)
+    assert [g.num_nodes for g in rows] == [g.num_nodes for g in batch]
+    assert all(a is b for a, b in zip(rows, batch))
+    for part, kw in ((slice(None), {}), (slice(None), dict(k_eig=3)),
+                     (slice(None), dict(n_pad=1024, e_pad=2048, g_pad=128)),
+                     (slice(1, None, 2), {})):
+        want = tgraph.pack_graphs(batch[part], mxu_layout=True,
+                                  native=False, **kw)
+        got = tgraph.pack_graphs(rows[part], mxu_layout=True, **kw)
+        _assert_same(want, got)
+        _assert_same_layout(want.mxu, got.mxu)
+    mixed = tsyn.synthetic_zinc(4, seed=8)
+    mixed[2].eig = mixed[2].eig[:, :3]
+    assert tgraph.GraphTable.over(mixed) is None
+    mixed = tsyn.synthetic_zinc(4, seed=8)
+    mixed[1].node_feat = mixed[1].node_feat.astype(np.float32)
+    assert tgraph.GraphTable.over(mixed) is None
+
+
+def _overflow_case(kind):
+    if kind == "nodes":
+        return tsyn.synthetic_zinc(24, seed=1), dict(n_pad=128)
+    if kind == "graphs":
+        return tsyn.synthetic_zinc(129, seed=1), dict(g_pad=128)
+    if kind == "edges":
+        return tsyn.synthetic_zinc(24, seed=1), dict(e_pad=128)
+    if kind == "pairs":
+        return tsyn.synthetic_sbm(4, seed=11, nodes=150), dict(n_pairs_pad=1)
+    raise KeyError(kind)
+
+
+@pytest.mark.parametrize("kind", ["nodes", "graphs", "edges", "pairs"])
+@pytest.mark.parametrize("path", [False, True])
+def test_block_overflow_raises(kind, path):
+    graphs, kw = _overflow_case(kind)
+    with pytest.raises(ValueError, match="overflow"):
+        tgraph.pack_graphs(graphs, mxu_layout=True, native=path, **kw)
+
+
+def test_native_block_rejects_an_endpoint_outside_its_graph():
+    graphs = tsyn.synthetic_zinc(3, seed=1)
+    graphs[1].dst = graphs[1].dst.copy()
+    graphs[1].dst[0] = graphs[1].num_nodes
+    with pytest.raises(ValueError, match="outside its graph"):
+        tgraph.pack_graphs(graphs, mxu_layout=True, native=True)
+
+
+@pytest.mark.parametrize("micro_batches", [1, 2])
+def test_tight_loader_escapes_alike_on_both_paths(monkeypatch,
+                                                  micro_batches):
+    """Under pads cut below the typical geometry, the native path raises
+    on exactly the batches numpy raises on: the same escapes, the same
+    batches."""
+    graphs = tsyn.synthetic_zinc(96, seed=21)
+    runs = {}
+    for path in (False, True):
+        monkeypatch.setattr(runtime, "available", lambda p=path: p)
+        loader = BatchLoader(graphs, batch_size=16, shuffle=True, seed=3,
+                             layout="mxu", geometry="typical",
+                             micro_batches=micro_batches)
+        loader.n_pad -= 128
+        loader.e_pad -= 256
+        runs[path] = ([b for _ in range(2) for b in loader],
+                      loader.n_escapes)
+    (np_batches, np_escapes), (nat_batches, nat_escapes) = runs[False], \
+        runs[True]
+    assert 0 < nat_escapes == np_escapes < len(np_batches)
+    assert len(nat_batches) == len(np_batches)
+    for a, b in zip(np_batches, nat_batches):
+        for x, y in (zip(a, b) if micro_batches > 1 else [(a, b)]):
+            _assert_same(x, y)
+            _assert_same_layout(x.mxu, y.mxu)
+
+
+def test_block_pack_counts_its_path():
+    graphs = tsyn.synthetic_zinc(10, seed=2)
+    with observe.tracing():
+        observe.reset()
+        for _ in range(3):
+            tgraph.pack_graphs(graphs, mxu_layout=True)
+        tgraph.pack_graphs(graphs, mxu_layout=True, native=False)
+        tgraph.pack_graphs(graphs)                        # flat: neither
+        with pytest.raises(ValueError):                   # nothing packed
+            tgraph.pack_graphs(graphs, mxu_layout=True, n_pad=128)
+        counters = dict(observe.RECORDER.counters)
+    observe.reset()
+    assert counters.get("pack.native") == 3
+    assert counters.get("pack.numpy") == 1
+
+
+def test_failed_build_packs_blocks_with_numpy(tmp_path, monkeypatch, caplog):
+    src = tmp_path / "packer.cpp"
+    src.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "_SRC", str(src))
+    monkeypatch.setattr(native, "_LIB", str(tmp_path / "_build" / "lib.so"))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    graphs = tsyn.synthetic_zinc(6, seed=2)
+    with caplog.at_level(logging.WARNING, logger=native.__name__):
+        with observe.tracing():
+            observe.reset()
+            got = tgraph.pack_graphs(graphs, mxu_layout=True)   # numpy
+            got2 = tgraph.pack_graphs(graphs, mxu_layout=True)
+            counters = dict(observe.RECORDER.counters)
+        observe.reset()
+        with pytest.raises(RuntimeError, match="not built"):
+            tgraph.pack_graphs(graphs, mxu_layout=True, native=True)
+    records = [r for r in caplog.records if r.name == native.__name__]
+    assert len(records) == 1 and records[0].levelno == logging.WARNING
+    assert "g++" in records[0].getMessage()
+    assert counters.get("pack.numpy") == 2 and "pack.native" not in counters
+    want = tgraph.pack_graphs(graphs, mxu_layout=True, native=False)
+    for b in (got, got2):
+        _assert_same(want, b)
+        _assert_same_layout(want.mxu, b.mxu)

@@ -20,6 +20,7 @@ import torch
 
 from dgn_tpu_torch import observe
 from dgn_tpu_torch import run as trun
+from dgn_tpu_torch import runtime
 from dgn_tpu_torch.data.loader import BatchLoader
 from dgn_tpu_torch.data.synthetic import synthetic_zinc
 from dgn_tpu_torch.graph import mxu_bucket_sizes, pack_graphs
@@ -202,7 +203,15 @@ def test_train_epoch_opens_each_phase_once_a_step():
         assert s[name]["count"] == steps, name
     assert s["step.optimizer"]["count"] == 2 * steps   # before and after
     assert s["loader.pack"]["count"] == s["pack.arrays"]["count"] == steps
-    assert s["pack.block_layout"]["count"] == steps
+    # the block pack is one native call where the packer is built, else
+    # numpy with build_mxu_layout's span inside pack.arrays
+    counters = observe.RECORDER.counters
+    if runtime.available():
+        assert counters["pack.native"] == steps and "pack.numpy" not in counters
+        assert "pack.block_layout" not in s
+    else:
+        assert counters["pack.numpy"] == steps
+        assert s["pack.block_layout"]["count"] == steps
     assert s["loader.shuffle"]["count"] == s["epoch.finish"]["count"] == 1
     for name in ("model.edge_context", "model.encode", "model.readout",
                  "model.layer_0", "model.layer_1", "model.layer_2"):
