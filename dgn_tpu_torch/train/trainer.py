@@ -46,7 +46,9 @@ signature; its Adam is then adam_l2(graphed=True).  Every other step runs
 eagerly, as before.
 
 Spans (observe.py): `step` and inside it its phases (`_adam_step`, which
-the rank trainers' steps share; `_graph_step`); per batch of train_epoch
+the rank trainers' steps share; `_graph_step`; on a step of micro-batches
+`step.micro` around each micro-batch's copy, forward and backward, and the
+counter `step.micro_batches`, one a micro-batch); per batch of train_epoch
 `epoch.readback` (the scores and the loss to the host) and
 `epoch.account` (the metric accumulator and Throughput), then
 `epoch.finish`.  train_epoch reads step n back after it has asked the
@@ -59,6 +61,7 @@ copies to the host had finished when the host came to read them).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
@@ -209,7 +212,10 @@ class Trainer:
         micro-batch's own statistics and its running stats update K times,
         and SBM's class weights are estimated per micro-batch.  Unlike
         dgn_tpu, which hands every micro-batch the same dropout rng, dropout
-        draws from the one device generator in micro-batch order."""
+        draws from the one device generator in micro-batch order.  Each
+        micro-batch counts `step.micro_batches` and opens `step.micro`
+        around its copy, forward and backward; a single batch opens
+        neither."""
         micro = isinstance(gb, (list, tuple))
         micros = list(gb) if micro else [gb]
         scales = [None]
@@ -238,17 +244,21 @@ class Trainer:
                     draws = draws.to(self.device)
             losses, scores = [], []
             for g, scale in zip(micros, scales):
-                with observe.span("step.h2d"):
-                    g = g.to(self.device)
-                with observe.span("step.forward"):
-                    if draws is not None:
-                        g = augment(g, draws, self.p)
-                    s = self.model(g, self.dropout_generator)
-                    loss = self.loss_fn(s, g)
-                    if scale is not None:
-                        loss = loss * scale
-                with observe.span("step.backward"):
-                    loss.backward()
+                if micro:
+                    observe.count("step.micro_batches")
+                with (observe.span("step.micro") if micro
+                      else contextlib.nullcontext()):
+                    with observe.span("step.h2d"):
+                        g = g.to(self.device)
+                    with observe.span("step.forward"):
+                        if draws is not None:
+                            g = augment(g, draws, self.p)
+                        s = self.model(g, self.dropout_generator)
+                        loss = self.loss_fn(s, g)
+                        if scale is not None:
+                            loss = loss * scale
+                    with observe.span("step.backward"):
+                        loss.backward()
                 losses.append(loss.detach())
                 scores.append(s.detach())
             if not micro:

@@ -362,3 +362,64 @@ def test_failed_build_packs_blocks_with_numpy(tmp_path, monkeypatch, caplog):
     for b in (got, got2):
         _assert_same(want, b)
         _assert_same_layout(want.mxu, b.mxu)
+
+
+def test_ogb_molecules_take_the_native_block_pack_in_micro_batches(
+        monkeypatch):
+    """ogbg-molpcba-like graphs (the benchmark's generator: 9 int32 atom
+    columns, 3 bond columns, 128 float32 labels of which about 30 % NaN),
+    drawn through a shuffled block loader's GraphTable and micro-batched
+    in 2, pack natively, each micro-batch counted as `pack.native`, bit
+    for bit as the numpy path packs them; every NaN label survives as
+    NaN, where its graph sits."""
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmark.inputs import ogb_molecules
+    spec = {"nodes": [9, 43], "atom_values": 8, "bond_values": 4,
+            "tasks": 128, "nan_share": 0.3, "k_eig": 3}
+    graphs = [tgraph.GraphData(num_nodes=g.num_nodes, src=g.src, dst=g.dst,
+                               node_feat=g.node_feat, eig=g.eig,
+                               edge_feat=g.edge_feat, label=g.label)
+              for g in ogb_molecules.make(spec, 40, 2**31 + 5, 0)]
+    assert graphs[0].node_feat.shape[1] == 9
+    assert graphs[0].node_feat.dtype == np.int32
+    assert graphs[0].edge_feat.shape[1] == 3
+    runs = {}
+    for path in (False, True):
+        monkeypatch.setattr(runtime, "available", lambda p=path: p)
+        loader = BatchLoader(graphs, batch_size=16, shuffle=True, seed=3,
+                             layout="mxu", geometry="typical",
+                             micro_batches=2)
+        assert (loader.table is not None) == path
+        with observe.tracing():
+            observe.reset()
+            batches = list(loader)
+            counters = dict(observe.RECORDER.counters)
+        observe.reset()
+        runs[path] = batches, counters
+    (np_batches, np_counts), (nat_batches, nat_counts) = runs[False], \
+        runs[True]
+    micros = [gb for b in nat_batches for gb in b]
+    assert [len(b) for b in nat_batches] == [2, 2, 2]
+    assert nat_counts.get("pack.native") == len(micros) == 6
+    assert "pack.numpy" not in nat_counts
+    assert np_counts.get("pack.numpy") == 6
+    for a, b in zip(np_batches, nat_batches):
+        for x, y in zip(a, b):
+            _assert_same(x, y)
+            _assert_same_layout(x.mxu, y.mxu)
+    # the labels: each real row is one graph's, NaNs where they were
+    want = sorted(tuple(np.where(np.isnan(g.label), -1.0, g.label))
+                  for g in graphs)
+    got = []
+    for gb in micros:
+        lab = gb.labels.numpy()
+        assert lab.dtype == np.float32 and lab.shape[1] == 128
+        assert gb.node_feat.shape[1] == 9 and gb.edge_feat.shape[1] == 3
+        got += [tuple(np.where(np.isnan(r), -1.0, r))
+                for r in lab[gb.graph_mask.numpy()]]
+    assert sorted(got) == want
+    assert sum(np.isnan(gb.labels.numpy()).sum() for gb in micros) == \
+        sum(np.isnan(g.label).sum() for g in graphs) > 0

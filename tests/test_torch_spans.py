@@ -307,3 +307,46 @@ def test_entry_point_records_spans_per_epoch(tmp_path, capsys):
     plain = json.loads((tmp_path / "plain" / "metrics.jsonl")
                        .read_text().splitlines()[0])
     assert "spans" not in plain
+
+
+def test_a_micro_batched_step_opens_step_micro_once_a_micro_batch():
+    """A step of K micro-batches opens `step.micro` K times, each under
+    `step` and around that micro-batch's copy, forward and backward, and
+    counts `step.micro_batches` K times; a single-batch eager step opens
+    and counts neither."""
+    trainer, loader = _toy()
+    a, b, c = list(loader)
+    with observe.tracing():
+        trainer.train_step([a, b])
+        trainer.train_step([a, b, c])
+        observe.next_step()
+        trainer.train_step(c)
+    s = observe.summary()
+    assert s["spans"]["step.micro"]["count"] == 5
+    assert s["counters"]["step.micro_batches"] == 5
+    assert s["counters"]["step.eager"] == 3
+    parents = {r[0]: r[1] for r in observe.RECORDER.records}
+    micro_ids = {r[0] for r in _records("step.micro")}
+    assert all(parents[r[4]] == "step" for r in _records("step.micro"))
+    inner = [r for r in observe.RECORDER.records
+             if r[1] in ("step.h2d", "step.forward", "step.backward")]
+    assert sum(r[4] in micro_ids for r in inner) == 3 * 5
+    # the single batch's three phases sit directly under its step
+    assert sum(parents[r[4]] == "step" for r in inner) == 3
+
+
+def test_neither_a_single_nor_a_replayed_step_opens_step_micro():
+    from test_torch_train_graphs import Fakes
+    trainer, loader = _toy()
+    graphed = Trainer(trainer.model, trainer.loss_fn, TrainParams(seed=41),
+                      device="cpu", graph_factory=Fakes(trainer.model))
+    gb = next(iter(loader))
+    with observe.tracing():
+        trainer.train_step(gb)
+        for _ in range(3):
+            graphed.train_step(gb)
+    s = observe.summary()
+    assert s["counters"]["step.graph_replays"] == 2
+    assert s["counters"]["step.eager"] == 2
+    assert "step.micro" not in s["spans"]
+    assert "step.micro_batches" not in s["counters"]
